@@ -62,6 +62,9 @@ def tiny_data():
 def pytest_configure(config):
     config.addinivalue_line("markers", "tpu: requires a real TPU device")
     config.addinivalue_line(
+        "markers", "cuda: requires a CUDA device (maxk_tpu_torch kernels)"
+    )
+    config.addinivalue_line(
         "markers",
         "golden: full-training accuracy floors (slow; in the default "
         "suite per VERDICT r4 #5 — deselect with -m 'not golden')",
