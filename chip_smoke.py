@@ -8,7 +8,10 @@ its plain PyTorch version at the main path's shapes, runs the op
 `maxk_spgemm` on full-scale synthetic reddit against its plain path, then
 trains MaxK-SAGE (4×256, k=32, dropout 0.5, lr 0.01 — the reference's
 reddit launch) on full-scale synthetic reddit for 10 epochs through the
-port's `train()`. Each phase prints one JSON line; every failure exits
+port's `train()`. Then the row-partitioned path: at a small size against
+the single-device path (SAGE, GCN, GIN), and 5 epochs of the same
+full-width training through `parallel.train.train_sharded`, one rank per
+card (NCCL). Each phase prints one JSON line; every failure exits
 non-zero with no `ok` line. The last three lines are the kernels record,
 the card's `nvidia-smi` name and power limit, and the `ok` line.
 
@@ -27,6 +30,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 DIM, K, LAYERS, EPOCHS = 256, 32, 4, 10
+SHARDED_EPOCHS = 5
 TIMED = 20  # launches per kernel timing
 
 
@@ -141,6 +145,19 @@ def phase_kernels(v: int):
         require(ok, f"cbsr_densify {tag}: differs from the plain version beyond rtol {rtol}")
         res[("cbsr_densify", tag)] = (err, ms, plain)
 
+        cvals, csel = topk_cuda.topk_cbsr_cuda(x, K)
+        cvals0, csel0 = topk_cuda.topk_cbsr_plain(x, K)
+        torch.cuda.synchronize()
+        err = (cvals - cvals0).abs().max().item()
+        exact = (torch.equal(csel, csel0)
+                 and torch.equal(cvals.view(torch.int32), cvals0.view(torch.int32)))
+        ms = cuda_ms(lambda: topk_cuda.topk_cbsr_cuda(x, K), TIMED)
+        plain = cuda_ms(lambda: topk_cuda.topk_cbsr_plain(x, K), TIMED)
+        emit("kernel", name="topk_cbsr", dtype=tag, shape=[v, DIM], k=K, exact=exact,
+             max_abs_err=err, ms=ms, plain_ms=plain)
+        require(exact, f"topk_cbsr {tag}: sel/vals differ from the plain version")
+        res[("topk_cbsr", tag)] = (err, ms, plain)
+
         z = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
         out = cbsr_cuda.sample_cuda(z, sel)
         ref = cbsr_cuda.sample_plain(z, sel)
@@ -153,7 +170,7 @@ def phase_kernels(v: int):
              max_abs_err=err, ms=ms, plain_ms=plain)
         require(exact, f"cbsr_sample {tag}: differs from the plain version")
         res[("cbsr_sample", tag)] = (err, ms, plain)
-        del x, y, take, y0, take0, vals, sel, out, ref, z
+        del x, y, take, y0, take0, vals, sel, cvals, csel, cvals0, csel0, out, ref, z
     return res
 
 
@@ -176,6 +193,40 @@ def phase_small_slice():
     emit("small_slice", nodes=data.csr.num_nodes, edges=data.csr.nnz,
          cuda_losses=losses["cuda"], cpu_losses=losses["cpu"], max_rel_diff=rel, rtol=1e-3)
     require(rel <= 1e-3, f"small slice: CUDA and CPU losses differ by {rel}")
+
+
+def phase_sharded_small():
+    """3 steps at the small size for SAGE, GCN and GIN: the single-device
+    path on the CPU (plain versions) and on the card, and the sharded path
+    at world size 1 on the card (K4, NCCL collectives, maxk_spgemm), from
+    the same parameters: the losses must agree."""
+    from maxk_tpu_torch.data.datasets import load_dataset
+    from maxk_tpu_torch.parallel.mesh import destroy_mesh, free_tcp_init_method, init_mesh
+    from maxk_tpu_torch.parallel.train import train_sharded
+    from maxk_tpu_torch.train.config import TrainConfig
+    from maxk_tpu_torch.train.loop import train
+
+    data = load_dataset("reddit", scale=0.002, seed=123)
+    mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
+    try:
+        for model in ("sage", "gcn", "gin"):
+            losses = {}
+            for device in ("cpu", "cuda"):
+                cfg = TrainConfig(dataset="reddit", model=model, epochs=3, hidden_dim=64,
+                                  hidden_layers=2, maxk=8, dropout=0.0, lr=0.01, device=device)
+                losses[device] = train(cfg, data, warmup_epochs=3).losses
+            losses["sharded_cuda"] = train_sharded(cfg, data, mesh, warmup_epochs=3).losses
+            # as in phase_small_slice: a top-k near-tie that the summation
+            # order flips moves one row of V
+            rel = {name: max(abs(a - b) / abs(b) for a, b in zip(ls, losses["cpu"]))
+                   for name, ls in losses.items() if name != "cpu"}
+            emit("sharded_small", model=model, world_size=1, nodes=data.csr.num_nodes,
+                 losses=losses, max_rel_diff_vs_cpu=rel, rtol=1e-3)
+            require(all(math.isfinite(x) for ls in losses.values() for x in ls),
+                    f"sharded small {model}: non-finite losses {losses}")
+            require(max(rel.values()) <= 1e-3, f"sharded small {model}: losses differ by {rel}")
+    finally:
+        destroy_mesh(mesh)
 
 
 def phase_data():
@@ -275,6 +326,65 @@ def phase_train(data):
     require(losses[-1] < losses[0], f"training: loss did not fall {losses}")
 
 
+def sharded_train_rank(mesh, wrappers: dict, data=None) -> dict:
+    """One rank of the full-width sharded run: counts reset to 0, train
+    SHARDED_EPOCHS epochs, counts read. `data` None: load it (a spawned
+    rank); rank 0's summary is the phase's."""
+    import torch
+
+    from maxk_tpu_torch.data.datasets import load_dataset
+    from maxk_tpu_torch.parallel.train import train_sharded
+    from maxk_tpu_torch.train.config import TrainConfig
+
+    if data is None:
+        data = load_dataset("reddit", scale=1.0, seed=123)
+    cfg = TrainConfig(dataset="reddit", model="sage", epochs=SHARDED_EPOCHS, lr=0.01,
+                      hidden_dim=DIM, hidden_layers=LAYERS, maxk=K, dropout=0.5,
+                      device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state = train_sharded(cfg, data, mesh, warmup_epochs=1)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    return {"losses": state.losses, "step_ms": [1e3 * t for t in state.epoch_times],
+            "launches": launches, "collective_bytes_per_step": state.step_bytes,
+            "shard_nodes": state.graph.shard_nodes, "shard_edges": state.graph.nnz,
+            "wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def phase_sharded_train(data, wrappers: dict) -> dict:
+    """MaxK-SAGE 4×256, k=32, dropout 0.5, lr 0.01 on reddit ×1.0 through the
+    row-partitioned path, one rank per card. The process group is stopped
+    before the phase returns."""
+    import torch
+
+    from maxk_tpu_torch.parallel.mesh import destroy_mesh, free_tcp_init_method, init_mesh, run_ranks
+
+    n = torch.cuda.device_count()
+    if n == 1:
+        mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
+        try:
+            out = sharded_train_rank(mesh, wrappers, data)
+        finally:
+            destroy_mesh(mesh)
+    else:  # each rank generates the data from its seed
+        out = run_ranks(sharded_train_rank, n, (wrappers,), device_type="cuda")[0]
+    losses, launches = out["losses"], out["launches"]
+    emit("sharded_train", world_size=n, nodes=data.csr.num_nodes, edges=data.csr.nnz,
+         layers=LAYERS, hidden=DIM, k=K, dropout=0.5, lr=0.01, epochs=SHARDED_EPOCHS,
+         step_ms_post_warmup=sum(out["step_ms"]) / len(out["step_ms"]), **out)
+    require(len(losses) == SHARDED_EPOCHS and all(math.isfinite(x) for x in losses),
+            f"sharded training: non-finite or missing losses {losses}")
+    require(losses[-1] < losses[0], f"sharded training: loss did not fall {losses}")
+    for name in ("topk_cbsr", "cbsr_densify", "cbsr_sample"):
+        require(launches[name] > 0, f"{name} was not launched on the sharded path")
+    require(launches["topk_cbsr"] >= LAYERS * SHARDED_EPOCHS,
+            f"topk_cbsr launched {launches['topk_cbsr']} < {LAYERS * SHARDED_EPOCHS} times")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -300,6 +410,8 @@ def main() -> int:
     wrappers = {
         "maxk_mask": (topk_cuda.maxk_mask_cuda, "maxk_tpu_torch/csrc/maxk_mask.cu",
                       "maxk_tpu/ops/topk_pallas.py:99", "float32"),
+        "topk_cbsr": (topk_cuda.topk_cbsr_cuda, "maxk_tpu_torch/csrc/topk_cbsr.cu",
+                      "maxk_tpu/ops/topk_pallas.py:79", "float32"),
         "cbsr_densify": (cbsr_cuda.densify_cuda, "maxk_tpu_torch/csrc/cbsr.cu",
                          "maxk_tpu/ops/cbsr_pallas.py:42", "bfloat16"),
         "cbsr_sample": (cbsr_cuda.sample_cuda, "maxk_tpu_torch/csrc/cbsr.cu",
@@ -311,19 +423,26 @@ def main() -> int:
         data, graph = phase_data()
         checks = phase_kernels(graph.num_nodes)
         phase_small_slice()
+        phase_sharded_small()
 
+        # the single-device main path: the op, then training
         for fn, *_ in wrappers.values():
             fn.launches = 0
         phase_op(graph)
         del graph
         torch.cuda.empty_cache()
         phase_train(data)
-        launches = {name: w[0].launches for name, w in wrappers.items()}
-        emit("launches", **launches)
-        for name, n in launches.items():
-            require(n > 0, f"{name} was not launched on the main path")
-        require(launches["maxk_mask"] >= LAYERS * EPOCHS,
-                f"maxk_mask launched {launches['maxk_mask']} < {LAYERS * EPOCHS} times")
+        single = {name: w[0].launches for name, w in wrappers.items()}
+        emit("launches", path="single_device", **single)
+        for name in ("maxk_mask", "cbsr_densify", "cbsr_sample"):
+            require(single[name] > 0, f"{name} was not launched on the main path")
+        require(single["maxk_mask"] >= LAYERS * EPOCHS,
+                f"maxk_mask launched {single['maxk_mask']} < {LAYERS * EPOCHS} times")
+
+        # the row-partitioned path (counts reset inside, read right after)
+        torch.cuda.empty_cache()
+        sharded = phase_sharded_train(data, {name: w[0] for name, w in wrappers.items()})
+        emit("launches", path="sharded", **sharded)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -333,7 +452,9 @@ def main() -> int:
         err, ms, plain = checks[(name, dtype)]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "dtype": dtype,
+            "launches": single[name] + sharded[name],
+            "launches_by_path": {"single_device": single[name], "sharded": sharded[name]},
+            "dtype": dtype,
             "max_abs_err": max(checks[(name, d)][0] for d in ("float32", "bfloat16")),
             "ms": ms, "plain_ms": plain,
         })

@@ -2,38 +2,22 @@
 //
 // Replaces the Pallas `_mask_kernel` (maxk_tpu/ops/topk_pallas.py:99, with
 // the shared `_take_mask` at :39-76). Same result bit for bit, a dropped
-// entry being +0.0 whatever the sign of x:
-//   * order-preserving key: bits | 0x80000000 for x >= +0, ~bits for x < 0
-//     (so -0.0 ranks below +0.0); bf16 is upcast to f32 first;
-//   * threshold = the k-th largest key, found by a 32-step binary search
-//     from the top bit (largest t with #{key >= t} >= k);
-//   * ties: every key above the threshold is kept, then the lowest columns
-//     among keys equal to it, until exactly k are kept.
+// entry being +0.0 whatever the sign of x. The key, the threshold search
+// and the tie rule are `maxk::row_topk_mask` (common.cuh), shared with the
+// top-k → CBSR kernel; bf16 is upcast to f32 first.
 //
 // Bound on the H100: device memory. Each row is read once and y and take
 // are written once, O(V·D) bytes; the 32 counting passes run on registers.
 // Design: one warp per row, D/32 keys per lane held in registers (lane
 // `l` owns columns i*32+l, so every load and store is one contiguous
-// 32-element span per warp). Each search step is NPL compares per lane and
-// one `__reduce_add_sync`. The tie rank is an exclusive prefix count in
-// column order: a running warp total plus `__popc` of the ballot below the
-// lane. No shared memory, no atomics; the −inf row padding and VMEM block
-// budgets of the TPU kernel have no counterpart here.
+// 32-element span per warp). No shared memory, no atomics; the −inf row
+// padding and VMEM block budgets of the TPU kernel have no counterpart
+// here.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t to_key(float v) {
-  const uint32_t b = __float_as_uint(v);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_key(uint32_t key) {
-  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
-}
 
 template <typename T, int NPL>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -47,32 +31,13 @@ maxk_mask_kernel(const T* __restrict__ x, T* __restrict__ y,
 
   uint32_t key[NPL];
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) key[i] = to_key(maxk::load_f32(x + base + i * 32));
+  for (int i = 0; i < NPL; ++i) key[i] = maxk::to_key(maxk::load_f32(x + base + i * 32));
 
-  uint32_t thr = 0;
-#pragma unroll 1
-  for (int bit = 31; bit >= 0; --bit) {
-    const uint32_t cand = thr | (1u << bit);
-    unsigned c = 0;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) c += key[i] >= cand;
-    if (__reduce_add_sync(kFull, c) >= (unsigned)k) thr = cand;
-  }
-
-  unsigned n_gt = 0;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) n_gt += key[i] > thr;
-  n_gt = __reduce_add_sync(kFull, n_gt);
-  const unsigned need = (unsigned)k - n_gt;  // >= 1 by the search invariant
-  const unsigned below = (1u << lane) - 1u;
-  unsigned eq_before = 0;  // equal keys in earlier columns (warp-uniform)
+  const uint32_t mask = maxk::row_topk_mask<NPL>(key, k, lane);
 #pragma unroll
   for (int i = 0; i < NPL; ++i) {
-    const bool eq = key[i] == thr;
-    const unsigned ballot = __ballot_sync(kFull, eq);
-    const bool t = key[i] > thr || (eq && eq_before + __popc(ballot & below) < need);
-    eq_before += __popc(ballot);
-    maxk::store_f32(y + base + i * 32, t ? from_key(key[i]) : 0.0f);
+    const bool t = (mask >> i) & 1u;
+    maxk::store_f32(y + base + i * 32, t ? maxk::from_key(key[i]) : 0.0f);
     take[base + i * 32] = t;
   }
 }

@@ -1,8 +1,10 @@
 """Import the JAX package's flax parameters into the port's modules.
 
 A flax `Dense.kernel` is (in, out) and `nn.Linear.weight` is (out, in);
-`LayerNorm.scale` becomes `weight`. Module names carry over unchanged, so
-`params["conv0"]["fc_self"]["kernel"]` lands in `conv0.fc_self.weight`.
+`LayerNorm.scale` becomes `weight`; GIN's scalar `eps` stays `eps`.
+Module names carry over unchanged, so `params["conv0"]["fc_self"]["kernel"]`
+lands in `conv0.fc_self.weight`, and GCN's `conv0.weight.kernel` in
+`conv0.weight.weight`.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 
 
 def import_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax params (nested dict of arrays) → a state_dict for `MaxKSAGE`."""
+    """flax params (nested dict of arrays) → a state_dict for the port's
+    `MaxKSAGE`, `MaxKGCN` or `MaxKGIN`."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node: Mapping) -> None:
@@ -28,8 +31,8 @@ def import_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
                 out[prefix + "weight"] = torch.from_numpy(np.ascontiguousarray(arr.T))
             elif name == "scale":
                 out[prefix + "weight"] = torch.from_numpy(arr.copy())
-            elif name == "bias":
-                out[prefix + "bias"] = torch.from_numpy(arr.copy())
+            elif name in ("bias", "eps"):
+                out[prefix + name] = torch.from_numpy(arr.copy())
             else:
                 raise KeyError(f"no torch counterpart for parameter {prefix}{name}")
 

@@ -1,8 +1,11 @@
 """Graph convolution layers over the port's aggregation ops.
 
-Port of `maxk_tpu/models/layers.py` (single device): `MaxKSAGEConv` and
-the dense branch of `_AggMixin._aggregate`. Degree normalization lives in
-the graph's edge values (`build_graph(norm="right")` for SAGE's mean).
+Port of `maxk_tpu/models/layers.py`: `MaxKSAGEConv`, `MaxKGraphConv`,
+`MaxKGINConv` and `_AggMixin._aggregate`. Degree normalization lives in
+the graph's edge values (`build_graph(norm=...)`: "right" for SAGE's mean,
+"both" for GCN, "none" for GIN's sum). Each conv takes an optional CBSR:
+on a sharded graph the aggregation then runs the compact `maxk_spgemm`,
+which all_gathers V·k values instead of V·D features.
 """
 
 from __future__ import annotations
@@ -12,8 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from maxk_tpu_torch.ops.spgemm import spmm
-from maxk_tpu_torch.sparse.graph import Graph
+from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
+from maxk_tpu_torch.sparse.cbsr import CBSR, cbsr_sample
 
 # flax's lecun_normal: truncated normal on [-2σ, 2σ], σ rescaled so the
 # truncated distribution has variance 1/fan_in
@@ -35,8 +38,18 @@ def dense(
     return lin
 
 
-def aggregate(graph: Graph, x: torch.Tensor, kernel_mode: str, compute_dtype) -> torch.Tensor:
-    """A @ x, in `compute_dtype` when given, returned in x's dtype."""
+def aggregate(graph, x: torch.Tensor, kernel_mode: str, compute_dtype,
+              cbsr: Optional[CBSR] = None) -> torch.Tensor:
+    """A @ x, in `compute_dtype` when given, returned in x's dtype.
+
+    With a CBSR (the models pass one on a sharded graph only), the compact
+    path: the values are sampled again from x, so that what happened to x
+    after densify (the model's dropout) reaches the aggregation as on one
+    device; with no dropout they are the CBSR's values (x == densify(cbsr))."""
+    if cbsr is not None:
+        cbsr = CBSR(values=cbsr_sample(x, cbsr.selector), selector=cbsr.selector)
+        return maxk_spgemm(graph, cbsr, dim=x.shape[-1], mode=kernel_mode,
+                           compute_dtype=compute_dtype)
     if compute_dtype is not None:
         return spmm(graph, x.to(compute_dtype), mode=kernel_mode).to(x.dtype)
     return spmm(graph, x, mode=kernel_mode)
@@ -60,11 +73,55 @@ class MaxKSAGEConv(nn.Module):
         self.fc_self = dense(in_dim, out_dim, use_bias, generator)
         self.fc_neigh = dense(in_dim, out_dim, False, generator)
 
-    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, graph, x: torch.Tensor, cbsr: Optional[CBSR] = None) -> torch.Tensor:
         if self.lin_before_mp:
+            # shrinking first narrows the SpMM but breaks the CBSR sparsity
             h_neigh = spmm(graph, self.fc_neigh(x), mode=self.kernel_mode)
         else:
             h_neigh = self.fc_neigh(
-                aggregate(graph, x, self.kernel_mode, self.compute_dtype)
+                aggregate(graph, x, self.kernel_mode, self.compute_dtype, cbsr)
             )
         return self.fc_self(x) + h_neigh
+
+
+class MaxKGraphConv(nn.Module):
+    """GCN conv, `weight(A @ x)` over the symmetric norm D^-1/2 A D^-1/2;
+    `weight` first when it shrinks the width (reference `layers.py:93-108`)."""
+
+    def __init__(
+        self, in_dim: int, out_dim: int, kernel_mode: str = "auto",
+        compute_dtype=None, generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.kernel_mode = kernel_mode
+        self.compute_dtype = compute_dtype
+        self.lin_before_mp = in_dim > out_dim
+        self.weight = dense(in_dim, out_dim, True, generator)
+
+    def forward(self, graph, x: torch.Tensor, cbsr: Optional[CBSR] = None) -> torch.Tensor:
+        if self.lin_before_mp:
+            return spmm(graph, self.weight(x), mode=self.kernel_mode)
+        return self.weight(aggregate(graph, x, self.kernel_mode, self.compute_dtype, cbsr))
+
+
+class MaxKGINConv(nn.Module):
+    """GIN conv, `apply_func((1+eps)·x + A @ x)` over the raw sum, with a
+    learnable `eps` (initially 0) and the 2-layer MLP
+    `apply_func_1(relu(apply_func_0(·)))`, hidden width `out_dim`
+    (reference `layers.py:111-140` at its defaults)."""
+
+    def __init__(
+        self, in_dim: int, out_dim: int, kernel_mode: str = "auto",
+        compute_dtype=None, generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.kernel_mode = kernel_mode
+        self.compute_dtype = compute_dtype
+        self.eps = nn.Parameter(torch.zeros((), dtype=torch.float32))
+        self.apply_func_0 = dense(in_dim, out_dim, True, generator)
+        self.apply_func_1 = dense(out_dim, out_dim, True, generator)
+
+    def forward(self, graph, x: torch.Tensor, cbsr: Optional[CBSR] = None) -> torch.Tensor:
+        agg = aggregate(graph, x, self.kernel_mode, self.compute_dtype, cbsr)
+        h = (1.0 + self.eps) * x + agg
+        return self.apply_func_1(torch.relu(self.apply_func_0(h)))

@@ -1,10 +1,14 @@
-"""MaxK-SAGE: `lin_in → L×[MaxK → dropout → SAGEConv(mean)] → lin_out`.
+"""GNN models: `lin_in → L×[nonlinear → dropout → conv (→ LayerNorm)] → lin_out`.
 
-Port of `MaxKSAGE` and the single-device branch of `_GNNBase._nonlinear`
-(`maxk_tpu/models/models.py:43-88`). On one device the MaxK activation is
-the mask kernel (`ops/topk_cuda.maxk_mask_fast`), and each layer
-aggregates the masked dense features with `spmm`. GCN, GIN and GNNRes are
-not ported yet.
+Port of `MaxKSAGE`, `MaxKGCN`, `MaxKGIN`, the ReLU aliases `GCN` and `GIN`,
+and `_GNNBase._nonlinear` (`maxk_tpu/models/models.py:43-171`). The
+nonlinearity is "maxk" or "relu". With maxk on one device the activation
+is the mask kernel (`ops/topk_cuda.maxk_mask_fast`) and each layer
+aggregates the masked dense features with `spmm`. On a `ShardedGraph`
+it is the top-k → CBSR kernel (`maxk_cbsr_fast`) and its densify: the
+layer gets both, and aggregates through the compact `maxk_spgemm`, whose
+all_gather moves V·k values instead of V·D features. GNNRes is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -14,9 +18,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from maxk_tpu_torch.models.layers import MaxKSAGEConv, dense
-from maxk_tpu_torch.ops.topk_cuda import maxk_mask_fast
-from maxk_tpu_torch.sparse.graph import Graph
+from maxk_tpu_torch.models.layers import MaxKGINConv, MaxKGraphConv, MaxKSAGEConv, dense
+from maxk_tpu_torch.ops.topk_cuda import maxk_cbsr_fast, maxk_mask_fast
+from maxk_tpu_torch.parallel.shard import ShardedGraph
+from maxk_tpu_torch.sparse.cbsr import cbsr_densify
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -33,10 +38,14 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-class MaxKSAGE(nn.Module):
-    """Parameters are created on the CPU from `generator`; move the model
-    with `.to(device)`. Attribute names follow the flax modules (`lin_in`,
-    `conv{i}.fc_self`, `conv{i}.fc_neigh`, `ln{i}`, `lin_out`)."""
+class _GNNBase(nn.Module):
+    """The shared stack; subclasses name their conv. Parameters are created
+    on the CPU from `generator`; move the model with `.to(device)`.
+    Attribute names follow the flax modules (`lin_in`, `conv{i}.*`,
+    `ln{i}`, `lin_out`)."""
+
+    conv_cls = None
+    default_nonlinear = "maxk"
 
     def __init__(
         self,
@@ -45,7 +54,7 @@ class MaxKSAGE(nn.Module):
         num_layers: int = 3,
         out_dim: int = 41,
         maxk: int = 32,
-        nonlinear: str = "maxk",
+        nonlinear: Optional[str] = None,
         dropout: float = 0.5,
         norm: bool = False,
         kernel_mode: str = "auto",
@@ -55,14 +64,14 @@ class MaxKSAGE(nn.Module):
         super().__init__()
         self.num_layers = num_layers
         self.maxk = maxk
-        self.nonlinear = nonlinear
+        self.nonlinear = nonlinear or self.default_nonlinear
         self.dropout = dropout
         self.norm = norm
         self.lin_in = dense(in_dim, hidden_dim, True, generator)
         for i in range(num_layers):
             self.add_module(
                 f"conv{i}",
-                MaxKSAGEConv(
+                self.conv_cls(
                     hidden_dim, hidden_dim, kernel_mode=kernel_mode,
                     compute_dtype=compute_dtype, generator=generator,
                 ),
@@ -72,27 +81,67 @@ class MaxKSAGE(nn.Module):
                 self.add_module(f"ln{i}", nn.LayerNorm(hidden_dim, eps=1e-6))
         self.lin_out = dense(hidden_dim, out_dim, True, generator)
 
-    def _nonlinear(self, x: torch.Tensor) -> torch.Tensor:
-        if self.nonlinear == "maxk":
-            return maxk_mask_fast(x, self.maxk)
-        return torch.relu(x)
+    def _nonlinear(self, x: torch.Tensor, graph):
+        """(activated dense, CBSR or None). Sharded, the CBSR is what the
+        compact aggregation gathers and densify(CBSR) ≡ x ⊙ mask; on one
+        device the mask kernel skips the compaction."""
+        if self.nonlinear != "maxk":
+            return torch.relu(x), None
+        if isinstance(graph, ShardedGraph):
+            cbsr = maxk_cbsr_fast(x, self.maxk)
+            return cbsr_densify(cbsr, x.shape[-1]).to(x.dtype), cbsr
+        return maxk_mask_fast(x, self.maxk), None
 
     def forward(
-        self, graph: Graph, x: torch.Tensor, train: bool = False,
+        self, graph, x: torch.Tensor, train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         x = self.lin_in(x)
         for i in range(self.num_layers):
-            x = self._nonlinear(x)
+            x, cbsr = self._nonlinear(x, graph)
             if train:
                 x = dropout(x, self.dropout, generator)
-            x = getattr(self, f"conv{i}")(graph, x)
+            x = getattr(self, f"conv{i}")(graph, x, cbsr)
             if self.norm:
                 x = getattr(self, f"ln{i}")(x)
         return self.lin_out(x)
 
 
-_NOT_PORTED = ("gcn", "gin", "gnn_res")
+class MaxKSAGE(_GNNBase):
+    """`lin_in → L×[MaxK → dropout → SAGEConv(mean)] → lin_out`."""
+
+    conv_cls = MaxKSAGEConv
+
+
+class MaxKGCN(_GNNBase):
+    """`lin_in → L×[MaxK → dropout → GraphConv (+LayerNorm)] → lin_out`."""
+
+    conv_cls = MaxKGraphConv
+
+
+class MaxKGIN(_GNNBase):
+    """GIN stack with `(1+eps)x + sum_agg` convs."""
+
+    conv_cls = MaxKGINConv
+
+
+class GCN(MaxKGCN):
+    """The ReLU baseline arm of GCN: same architecture, no CBSR path."""
+
+    default_nonlinear = "relu"
+
+
+class GIN(MaxKGIN):
+    """The ReLU baseline arm of GIN."""
+
+    default_nonlinear = "relu"
+
+
+_MODEL_NORMS = {
+    "sage": (MaxKSAGE, "right"),
+    "gcn": (MaxKGCN, "both"),
+    "gin": (MaxKGIN, "none"),
+}
 
 
 def build_model(
@@ -110,15 +159,12 @@ def build_model(
     generator: Optional[torch.Generator] = None,
 ):
     """Returns (module, graph_norm_mode). The module is on the CPU."""
-    if model in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--model {model} is not ported yet: ROADMAP A7 (GCN, GIN, GNNRes)"
-        )
-    if model != "sage":
-        raise KeyError(model)
-    module = MaxKSAGE(
+    if model == "gnn_res":
+        raise NotImplementedError("--model gnn_res is not ported yet: ROADMAP A7 (GNNRes)")
+    cls, gnorm = _MODEL_NORMS[model]
+    module = cls(
         in_dim, hidden_dim=hidden_dim, num_layers=num_layers, out_dim=out_dim,
         maxk=maxk, nonlinear=nonlinear, dropout=dropout, norm=norm,
         kernel_mode=kernel_mode, compute_dtype=compute_dtype, generator=generator,
     )
-    return module, "right"
+    return module, gnorm

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels in `maxk_tpu_torch/csrc/`.
 
-nvcc compiles every `.cu` there for `sm_90a` into one shared library with a
+nvcc compiles every `.cu` there for `sm_90a`, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, loaded through ctypes. No source includes PyTorch's
 headers, so the build takes seconds. It runs at first use, into
 `csrc/build/`, under a name that carries the hash of the sources and the
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -31,6 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "maxk_mask_f32": (_P, _P, _P, _I, _I, _I, _P),
     "maxk_mask_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "topk_cbsr_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "topk_cbsr_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "cbsr_densify_f32": (_P, _P, _P, _I, _I, _I, _P),
     "cbsr_densify_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "cbsr_sample_f32": (_P, _P, _P, _I, _I, _I, _P),
@@ -69,6 +73,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmaxk_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Start every command, wait for all; raise with the output of the
+    first that failed."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in cmds
+    ]
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out + err)
+    if failed is not None:
+        cmd, code, output = failed
+        raise RuntimeError(f"nvcc failed with exit code {code}:\n{' '.join(cmd)}\n{output}")
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
@@ -76,16 +97,14 @@ def build() -> Path:
         return out
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in cu]
+        _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(cu, objs))
+        tmp = Path(tmpdir) / out.name
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
     return out
 
 

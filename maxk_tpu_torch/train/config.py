@@ -41,7 +41,7 @@ class TrainConfig:
     profile_kernels: bool = False
     row_block: int = 8
     edge_tile: int = 256
-    mesh_shape: int = 0  # 0 = single device
+    mesh_shape: int = 0  # > 1: that many ranks, one per device (row-partitioned)
     w_lookahead: int = 5
     device: str = "cuda"  # torch device the run uses; never falls back
 
@@ -75,17 +75,11 @@ class TrainConfig:
         self._check_ported()
 
     def _check_ported(self) -> None:
-        if self.model != "sage":
+        if self.model == "gnn_res":
             raise NotImplementedError(
-                f"--model {self.model} is not ported yet: ROADMAP A7 "
-                "(GCN, GIN, GNNRes)"
+                "--model gnn_res is not ported yet: ROADMAP A7 (GNNRes)"
             )
         resolve_mode(self.kernel_mode)
-        if self.mesh_shape > 1:
-            raise NotImplementedError(
-                "--mesh_shape > 1 (row-partitioned multi-device training) is "
-                "not ported yet: ROADMAP A14"
-            )
         if self.enable_lookahead:
             raise NotImplementedError(
                 "--enable_lookahead is not ported yet: ROADMAP A8 (Lookahead)"

@@ -53,18 +53,22 @@ class TrainState:
     losses: list = field(default_factory=list)
 
 
+def per_node_loss(logits, labels, multilabel: bool) -> torch.Tensor:
+    """(V,) cross-entropy, or mean BCE over the labels when multilabel."""
+    if multilabel:
+        return F.binary_cross_entropy_with_logits(logits, labels, reduction="none").mean(-1)
+    return F.cross_entropy(logits, labels.long(), reduction="none")
+
+
 def _loss_fn(logits, labels, mask, multilabel: bool):
     w = mask.to(torch.float32)
-    if multilabel:
-        per = F.binary_cross_entropy_with_logits(logits, labels, reduction="none").mean(-1)
-    else:
-        per = F.cross_entropy(logits, labels.long(), reduction="none")
-    return (per * w).sum() / w.sum().clamp_min(1.0)
+    return (per_node_loss(logits, labels, multilabel) * w).sum() / w.sum().clamp_min(1.0)
 
 
-def setup(cfg: TrainConfig, data: GraphData) -> TrainState:
-    device = resolve_device(cfg.device)
-    model, gnorm = build_model(
+def model_from_config(cfg: TrainConfig, data: GraphData):
+    """(module on the CPU, graph norm) for the run's flags, the parameters
+    drawn from `cfg.seed`."""
+    return build_model(
         cfg.model,
         in_dim=data.feat_dim,
         out_dim=data.num_classes,
@@ -78,6 +82,11 @@ def setup(cfg: TrainConfig, data: GraphData) -> TrainState:
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None,
         generator=torch.Generator().manual_seed(cfg.seed),
     )
+
+
+def setup(cfg: TrainConfig, data: GraphData) -> TrainState:
+    device = resolve_device(cfg.device)
+    model, gnorm = model_from_config(cfg, data)
     model.to(device)
     graph = build_graph(data.csr, norm=gnorm, device=device)
     return TrainState(

@@ -11,6 +11,7 @@ it there as
 import pytest
 import torch
 
+from maxk_tpu_torch.data.datasets import load_dataset
 from maxk_tpu_torch.data.synthetic import rmat_graph
 from maxk_tpu_torch.ops import cbsr_cuda, topk_cuda
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm
@@ -68,6 +69,55 @@ def test_maxk_mask_backward_is_g_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,k", [(100, 32, 1), (777, 96, 7), (4097, 256, 32), (300, 1024, 100),
+                                   (65, 64, 64), (40, 1024, 1024)])
+def test_topk_cbsr_kernel_exact(cuda, v, d, k, dtype):
+    """K4 against its plain version: selectors equal, values bit for bit
+    (a selected -0.0 is +0.0), k = 1 and k = D included."""
+    x = _rows(v, d, dtype, cuda)
+    vals, sel = topk_cuda.topk_cbsr_cuda(x, k)
+    vals0, sel0 = topk_cuda.topk_cbsr_plain(x, k)
+    torch.cuda.synchronize()
+    assert vals.dtype == torch.float32 and sel.dtype == torch.int32
+    assert torch.equal(sel, sel0) and torch.equal(_bits(vals), _bits(vals0))
+
+
+@pytest.mark.cuda
+def test_topk_cbsr_backward_densifies(cuda):
+    x = _rows(300, 256, torch.float32, cuda).requires_grad_(True)
+    g = torch.randn(300, 32, device=cuda)
+    cbsr = topk_cuda.maxk_cbsr_fast(x, 32)
+    cbsr.values.backward(g)
+    assert torch.equal(x.grad, cbsr_cuda.densify_plain(g, cbsr.selector, 256))
+
+
+@pytest.mark.cuda
+def test_sharded_sage_world_size_1_matches_single_device(cuda):
+    """The sharded path (K4, the CBSR collectives on NCCL, maxk_spgemm) at
+    world size 1 against the single-device path (K1, spmm), 3 steps from
+    the same parameters. Atomics sum in another order each run, so a
+    top-k near-tie may flip: the bound is 1e-3 relative."""
+    from maxk_tpu_torch.parallel.mesh import destroy_mesh, free_tcp_init_method, init_mesh
+    from maxk_tpu_torch.parallel.train import train_sharded
+    from maxk_tpu_torch.train.config import TrainConfig
+    from maxk_tpu_torch.train.loop import train
+
+    data = load_dataset("reddit", scale=0.002, seed=123)
+    cfg = TrainConfig(dataset="reddit", epochs=3, hidden_dim=64, hidden_layers=2, maxk=8,
+                      dropout=0.0, lr=0.01, device="cuda")
+    single = train(cfg, data, warmup_epochs=3).losses
+    mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
+    try:
+        before = topk_cuda.topk_cbsr_cuda.launches
+        sharded = train_sharded(cfg, data, mesh, warmup_epochs=3).losses
+        assert topk_cuda.topk_cbsr_cuda.launches - before == 2 * 3 * 2  # layers × steps × (train, eval)
+    finally:
+        destroy_mesh(mesh)
+    assert max(abs(a - b) / abs(b) for a, b in zip(sharded, single)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("v,k,d", [(1000, 32, 256), (999, 7, 50), (100, 600, 700), (64, 1, 1)])
 def test_densify_and_sample_kernels(cuda, v, k, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(v + k)
@@ -86,15 +136,16 @@ def test_densify_and_sample_kernels(cuda, v, k, d, dtype):
 def test_each_launch_counts_once(cuda):
     x = torch.randn(64, 64, device=cuda)
     sel = torch.zeros(64, 4, dtype=torch.int32, device=cuda)
-    before = (topk_cuda.maxk_mask_cuda.launches, cbsr_cuda.densify_cuda.launches,
-              cbsr_cuda.sample_cuda.launches)
+    counters = (topk_cuda.maxk_mask_cuda, topk_cuda.topk_cbsr_cuda, cbsr_cuda.densify_cuda,
+                cbsr_cuda.sample_cuda)
+    before = [c.launches for c in counters]
     topk_cuda.maxk_mask(x, 4)
+    topk_cuda.topk_cbsr(x, 4)
     cbsr_cuda.densify(x[:, :4].contiguous(), sel, 64)
     cbsr_cuda.sample(x, sel)
-    topk_cuda.maxk_mask_plain(x, 4)  # the plain version counts nothing
-    after = (topk_cuda.maxk_mask_cuda.launches, cbsr_cuda.densify_cuda.launches,
-             cbsr_cuda.sample_cuda.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    topk_cuda.maxk_mask_plain(x, 4)  # the plain versions count nothing
+    topk_cuda.topk_cbsr_plain(x, 4)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -103,6 +154,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         topk_cuda.maxk_mask(torch.randn(8, 64, device=cuda, dtype=torch.float16), 4)
     with pytest.raises(ValueError, match="multiple of 32"):
         topk_cuda.maxk_mask(torch.randn(8, 48, device=cuda), 4)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        topk_cuda.topk_cbsr(torch.randn(8, 48, device=cuda), 4)
+    with pytest.raises(ValueError, match=r"k=0 must be in"):
+        topk_cuda.topk_cbsr(torch.randn(8, 64, device=cuda), 0)
     with pytest.raises(ValueError, match="contiguous"):
         topk_cuda.maxk_mask(torch.randn(64, 8, device=cuda).t(), 4)
     with pytest.raises(TypeError):

@@ -1,5 +1,6 @@
-"""MaxK-SAGE in the port against the flax model, from imported parameters:
-logits and the gradient of the masked loss for every parameter, at 1e-5."""
+"""MaxK-SAGE, MaxK-GCN and MaxK-GIN in the port against the flax models,
+from imported parameters: logits and the gradient of the masked loss for
+every parameter, at 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -123,7 +124,50 @@ def test_dropout_draws_from_its_generator():
         dropout(x, 0.5, None)
 
 
+@pytest.mark.parametrize("flags", [{}, {"nonlinear": "relu"}, {"norm": True}], ids=str)
+@pytest.mark.parametrize("name", ["gcn", "gin"])
+def test_gcn_gin_logits_and_grads_match(name, flags):
+    """MaxK-GCN (norm "both") and MaxK-GIN (norm "none", learnable eps) from
+    imported flax parameters: logits and every parameter's gradient of the
+    masked loss at 1e-5."""
+    jcsr = jax_rmat_graph(200, 1500, seed=11)
+    feats, labels, masks = planted_partition_data(jcsr, F_IN, CLASSES, seed=11)
+    jmodel, gnorm = jax_build_model(name, CLASSES, hidden_dim=HIDDEN, num_layers=LAYERS,
+                                    maxk=MAXK, dropout=0.0, kernel_mode="segsum", **flags)
+    jg = jax_build_graph(jcsr, norm=gnorm, build_tiles=False)
+    key = jax.random.PRNGKey(0)
+    params = jmodel.init({"params": key, "dropout": key}, jg, jnp.asarray(feats))["params"]
+
+    def loss_of(p):
+        logits = jmodel.apply({"params": p}, jg, jnp.asarray(feats))
+        return jax_loss_fn(logits, jnp.asarray(labels), jnp.asarray(masks[0]), False), logits
+
+    (_, ref), grads = jax.value_and_grad(loss_of, has_aux=True)(params)
+    m, norm = build_model(name, F_IN, CLASSES, hidden_dim=HIDDEN, num_layers=LAYERS, maxk=MAXK,
+                          dropout=0.0, generator=torch.Generator().manual_seed(0), **flags)
+    assert norm == gnorm
+    m.load_state_dict(import_flax_params(jax.tree.map(np.asarray, params)), strict=True)
+    logits = m(build_graph(rmat_graph(200, 1500, seed=11), norm=norm), torch.from_numpy(feats))
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    _loss_fn(logits, torch.from_numpy(labels), torch.from_numpy(masks[0]), False).backward()
+    ref_grads = import_flax_params(jax.tree.map(np.asarray, grads))
+    named = dict(m.named_parameters())
+    assert set(named) == set(ref_grads)
+    for pname, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref_grads[pname].numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=pname)
+
+
+def test_relu_aliases_default_to_relu():
+    from maxk_tpu_torch.models.models import GCN, GIN, MaxKGCN
+
+    for cls in (GCN, GIN):
+        assert cls(F_IN, hidden_dim=HIDDEN, num_layers=LAYERS).nonlinear == "relu"
+    assert MaxKGCN(F_IN, hidden_dim=HIDDEN, num_layers=LAYERS).nonlinear == "maxk"
+
+
 def test_unported_models_raise():
-    for name in ("gcn", "gin", "gnn_res"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            build_model(name, F_IN, CLASSES)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        build_model("gnn_res", F_IN, CLASSES)
+    with pytest.raises(KeyError):
+        build_model("nonsense", F_IN, CLASSES)

@@ -52,8 +52,9 @@ echo "$@" >> {log}
     out = _native.build()
     assert out.exists() and out == _native.library_path()
     assert _native.build() == out
-    assert len(log.read_text().splitlines()) == 1
-    assert "a.cu" in log.read_text()
+    # one compile per source, then one link
+    compile_call, link_call = log.read_text().splitlines()
+    assert compile_call.endswith("a.cu") and link_call.endswith("a.o")
     assert [p.name for p in (csrc / "build").iterdir()] == [out.name]  # no temp file left
 
 

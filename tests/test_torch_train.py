@@ -1,7 +1,7 @@
 """The port's training slice against the JAX package's: the loss over 3
 Adam steps from imported parameters (dropout 0) at 1e-4 relative; the CLI's
-validation; flags outside the slice; `--device cuda` without a card; and a
-run with jax blocked from import."""
+validation; flags the port parses and flags it does not port yet;
+`--device cuda` without a card; and a run with jax blocked from import."""
 
 import json
 import os
@@ -96,15 +96,12 @@ def test_parse_args_defaults_match_jax():
 
 
 OUT_OF_SLICE = [
-    (["--model", "gcn"], "ROADMAP A7"),
-    (["--model", "gin"], "ROADMAP A7"),
     (["--model", "gnn_res"], "ROADMAP A7"),
     (["--kernel_mode", "hybrid"], "ROADMAP A13"),
     (["--kernel_mode", "hybrid_int8"], "ROADMAP A13"),
     (["--kernel_mode", "tiles_xla"], "ROADMAP A12"),
     (["--kernel_mode", "tiles_scan"], "ROADMAP A12"),
     (["--kernel_mode", "pallas"], "ROADMAP B5"),
-    (["--mesh_shape", "2"], "ROADMAP A14"),
     (["--enable_lookahead"], "ROADMAP A8"),
     (["--checkpoint_every", "5"], "ROADMAP A8"),
     (["--evaluate", "ckpt"], "ROADMAP A8"),
@@ -119,6 +116,14 @@ def test_out_of_slice_flags_raise(argv, item):
     jcfg.parse_args(argv)  # valid for the reference
     with pytest.raises(NotImplementedError, match=item):
         tcfg.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [["--model", "gcn"], ["--model", "gin"], ["--mesh_shape", "2"]],
+                         ids=lambda a: " ".join(a))
+def test_ported_flags_parse_as_in_jax(argv):
+    ref, got = jcfg.parse_args(argv), tcfg.parse_args(argv)
+    for name, value in vars(ref).items():
+        assert getattr(got, name) == value, name
 
 
 def test_device_cuda_without_cuda_raises(monkeypatch, tmp_path):
