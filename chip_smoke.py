@@ -11,9 +11,16 @@ reddit launch) on full-scale synthetic reddit for 10 epochs through the
 port's `train()`. Then the row-partitioned path: at a small size against
 the single-device path (SAGE, GCN, GIN), and 5 epochs of the same
 full-width training through `parallel.train.train_sharded`, one rank per
-card (NCCL). Each phase prints one JSON line; every failure exits
-non-zero with no `ok` line. The last three lines are the kernels record,
-the card's `nvidia-smi` name and power limit, and the `ok` line.
+card (NCCL). Then the benchmark path, through the entry points of
+`maxk_tpu_torch.bench`: the `bench.py` record on the same reddit graph,
+the kernel suite on the five training graphs (validated), the MaxK probe
+(K1, K4, K8), the brick probe (K5) and the microbenchmarks (K6, K7).
+Before the paths, every kernel is held against its plain version at its
+path's shapes, and timed beside its bound and, where one exists, the
+PyTorch library call that computes the same function. Each phase prints
+one JSON line; every failure exits non-zero with no `ok` line. The last
+three lines are the kernels record, the card's `nvidia-smi` name and
+power limit, and the `ok` line.
 
 float32 matrix products and convolutions run in full float32 here: TF32 is
 switched off for both.
@@ -21,6 +28,7 @@ switched off for both.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -31,7 +39,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 DIM, K, LAYERS, EPOCHS = 256, 32, 4, 10
 SHARDED_EPOCHS = 5
+BRICK_V, BRICK_E = 32768, 1_000_000  # probe_bricks' default graph
 TIMED = 20  # launches per kernel timing
+# the H100 SXM's published rates (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA cores; bf16 tensor cores
 
 
 class SmokeFailure(Exception):
@@ -48,19 +60,19 @@ def require(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of `fn()` over `iters` runs, by CUDA events, after
-    one warm-up run."""
-    import torch
+    """Mean device time of `fn()` in ms over `iters` runs after one warm-up
+    run: `micro.timeit`, by CUDA events."""
+    from maxk_tpu_torch.bench.micro import timeit
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return 1e3 * timeit(fn, iters=iters, warmup=1)
+
+
+def bound(nbytes: float, flops: float = 0.0, dtype: str = "float32") -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of `dtype`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def nvidia_smi() -> str:
@@ -104,8 +116,13 @@ def _mask_input(v: int, dtype, gen):
     return x.to(dtype)
 
 
+def _unique(t) -> int:
+    return int(t.unique().numel())
+
+
 def phase_kernels(v: int):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel of the training paths against its plain version at the
+    main path's shapes, timed beside its bound and the library call."""
     import torch
 
     from maxk_tpu_torch.ops import cbsr_cuda, topk_cuda
@@ -114,6 +131,7 @@ def phase_kernels(v: int):
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
+        isz = torch.finfo(dtype).bits // 8
         x = _mask_input(v, dtype, gen)
         y, take = topk_cuda.maxk_mask_cuda(x, K)
         y0, take0 = topk_cuda.maxk_mask_plain(x, K)
@@ -123,13 +141,18 @@ def phase_kernels(v: int):
         k_each = bool((take.sum(1) == K).all())
         ms = cuda_ms(lambda: topk_cuda.maxk_mask_cuda(x, K), TIMED)
         plain = cuda_ms(lambda: topk_cuda.maxk_mask_plain(x, K), TIMED)
+        # the library call selects only, in another layout: (values, indices)
+        lib = cuda_ms(lambda: torch.topk(x, K), TIMED)
+        b = bound(v * DIM * (2 * isz + 1))  # x in; y, take out
         emit("kernel", name="maxk_mask", dtype=tag, shape=[v, DIM], k=K, exact=exact,
-             exactly_k=k_each, max_abs_err=err, ms=ms, plain_ms=plain)
+             exactly_k=k_each, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+             library="torch.topk (selection only, different output layout)", **b)
         require(exact and k_each, f"maxk_mask {tag}: y/take differ from the plain version")
-        res[("maxk_mask", tag)] = (err, ms, plain)
+        res[("maxk_mask", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **b)
 
         vals = torch.randn((v, K), generator=gen, device="cuda").to(dtype)
         sel = torch.randint(0, DIM, (v, K), generator=gen, device="cuda", dtype=torch.int32)
+        sel64 = sel.long()
         out = cbsr_cuda.densify_cuda(vals, sel, DIM)
         ref = cbsr_cuda.densify_plain(vals, sel, DIM)
         torch.cuda.synchronize()
@@ -140,10 +163,15 @@ def phase_kernels(v: int):
         ok = torch.allclose(out.float(), ref.float(), rtol=rtol, atol=1e-6)
         ms = cuda_ms(lambda: cbsr_cuda.densify_cuda(vals, sel, DIM), TIMED)
         plain = cuda_ms(lambda: cbsr_cuda.densify_plain(vals, sel, DIM), TIMED)
+        lib = cuda_ms(lambda: torch.zeros((v, DIM), dtype=dtype, device="cuda")
+                      .scatter_add_(1, sel64, vals), TIMED)
+        b = bound(v * K * (isz + 4) + v * DIM * isz)
         emit("kernel", name="cbsr_densify", dtype=tag, shape=[v, K], dim=DIM, rtol=rtol,
-             atol=1e-6, ok=ok, max_abs_err=err, ms=ms, plain_ms=plain)
+             atol=1e-6, ok=ok, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+             library="scatter_add_ into zeros", **b)
         require(ok, f"cbsr_densify {tag}: differs from the plain version beyond rtol {rtol}")
-        res[("cbsr_densify", tag)] = (err, ms, plain)
+        res[("cbsr_densify", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                          library_ms=lib, **b)
 
         cvals, csel = topk_cuda.topk_cbsr_cuda(x, K)
         cvals0, csel0 = topk_cuda.topk_cbsr_plain(x, K)
@@ -153,10 +181,13 @@ def phase_kernels(v: int):
                  and torch.equal(cvals.view(torch.int32), cvals0.view(torch.int32)))
         ms = cuda_ms(lambda: topk_cuda.topk_cbsr_cuda(x, K), TIMED)
         plain = cuda_ms(lambda: topk_cuda.topk_cbsr_plain(x, K), TIMED)
+        lib = cuda_ms(lambda: torch.topk(x, K), TIMED)
+        b = bound(v * DIM * isz + v * K * 8)  # x in; f32 values and int32 selectors out
         emit("kernel", name="topk_cbsr", dtype=tag, shape=[v, DIM], k=K, exact=exact,
-             max_abs_err=err, ms=ms, plain_ms=plain)
+             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+             library="torch.topk (selection only, different output layout)", **b)
         require(exact, f"topk_cbsr {tag}: sel/vals differ from the plain version")
-        res[("topk_cbsr", tag)] = (err, ms, plain)
+        res[("topk_cbsr", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **b)
 
         z = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
         out = cbsr_cuda.sample_cuda(z, sel)
@@ -166,12 +197,201 @@ def phase_kernels(v: int):
         exact = torch.equal(out, ref)
         ms = cuda_ms(lambda: cbsr_cuda.sample_cuda(z, sel), TIMED)
         plain = cuda_ms(lambda: cbsr_cuda.sample_plain(z, sel), TIMED)
+        lib = cuda_ms(lambda: torch.gather(z, 1, sel64), TIMED)
+        # selectors in, the distinct elements they touch read, (v, K) out
+        touched = _unique(sel64 + DIM * torch.arange(v, device="cuda")[:, None])
+        b = bound(v * K * (4 + isz) + touched * isz)
         emit("kernel", name="cbsr_sample", dtype=tag, shape=[v, K], dim=DIM, exact=exact,
-             max_abs_err=err, ms=ms, plain_ms=plain)
+             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, library="torch.gather",
+             **b)
         require(exact, f"cbsr_sample {tag}: differs from the plain version")
-        res[("cbsr_sample", tag)] = (err, ms, plain)
-        del x, y, take, y0, take0, vals, sel, cvals, csel, cvals0, csel0, out, ref, z
+        res[("cbsr_sample", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                         library_ms=lib, **b)
+        del x, y, take, y0, take0, vals, sel, sel64, cvals, csel, cvals0, csel0, out, ref, z
     return res
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def brick_inputs():
+    """probe_bricks' default graph (R-MAT, BRICK_V nodes, BRICK_E edges
+    drawn, seed 123) and its default brick schedule, on the card: built once
+    for the K5 check and the probe."""
+    from maxk_tpu_torch.data.synthetic import rmat_graph
+    from maxk_tpu_torch.sparse.bricks import build_bricks
+
+    t0 = time.perf_counter()
+    g = rmat_graph(BRICK_V, BRICK_E, seed=123)
+    sched = build_bricks(g)
+    emit("brick_inputs", nodes=g.num_nodes, edges=g.nnz, seconds=time.perf_counter() - t0)
+    return g.to("cuda"), sched.to("cuda")
+
+
+def phase_bench_kernels(bg, sched):
+    """K5-K8, the kernels of the benchmark path, against their plain
+    versions at the shapes the entry points give them: K5 on probe_bricks'
+    default schedule `sched` of the graph `bg`, K6 and K7 at micro's
+    shapes, K8 at probe_topk's. K5 is timed by the probe (phase_probes)."""
+    import torch
+
+    from maxk_tpu_torch.ops import gather_cuda, spmm_bricks
+
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    # K5 at D = 256. float32: probe_bricks' criterion, relative to max|ref|.
+    # bfloat16: element by element, one bf16 ulp (2^-7 of |ref| at most;
+    # both sum in f32, maybe in another order, and round once) plus 1e-5 of
+    # max|ref| where the f32 sum cancels
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        x = torch.randn((bg.num_nodes, DIM), generator=gen, device="cuda").to(dtype)
+        y = spmm_bricks.spmm_bricks_cuda(sched, x).float()
+        ref = spmm_bricks.spmm_bricks_plain(sched, x).float()
+        scale = ref.abs().max().item()
+        e = (y - ref).abs()
+        if dtype == torch.float32:
+            tol = {"max_rel": 1e-5, "mean_rel": 1e-4}
+            ok = e.max().item() <= 1e-5 * scale and e.mean().item() <= 1e-4 * scale
+        else:
+            tol = {"rtol": 2.0**-7, "atol_rel": 1e-5}
+            ok = bool((e <= 2.0**-7 * ref.abs() + 1e-5 * scale).all())
+        err = {"max_abs": e.max().item(), "max_rel": e.max().item() / scale,
+               "mean_rel": e.mean().item() / scale,
+               "bitwise_equal": torch.equal(_bits(y.to(dtype)), _bits(ref.to(dtype)))}
+        emit("kernel", name="spmm_bricks", dtype=tag, nodes=bg.num_nodes, edges=bg.nnz,
+             dim=DIM, ok=ok, tolerance=tol, vs_plain=err)
+        require(ok, f"spmm_bricks {tag}: {err} beyond {tol} against the plain version")
+        res[("spmm_bricks", tag)] = dict(max_abs_err=err["max_abs"])
+        del x, y, ref, e
+
+    def gather_check(name, kernel, plain, library_fn, args, nbytes, key, **shape):
+        out = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        exact = torch.equal(_bits(out), _bits(ref))
+        err = (out.float() - ref.float()).abs().max().item()
+        del out, ref
+        ms = cuda_ms(lambda: kernel(*args), TIMED)
+        plain_ms = cuda_ms(lambda: plain(*args), TIMED)
+        lib = cuda_ms(lambda: library_fn(*args), TIMED)
+        b = bound(nbytes)
+        emit("kernel", name=name, exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             library_ms=lib, **shape, **b)
+        require(exact, f"{name} {shape}: differs from the plain version")
+        res[(name, key)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib, **b)
+
+    # K6: slabs of 2048 and 8192 rows, D = 256, 2^20 indices
+    n = 1 << 20
+    for s in (2048, 8192):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            isz = torch.finfo(dtype).bits // 8
+            slab = torch.randn((s, DIM), generator=gen, device="cuda").to(dtype)
+            idx = torch.randint(0, s, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            gather_check("slab_gather", gather_cuda.slab_gather_cuda,
+                         gather_cuda.gather_rows_plain, lambda t, i: torch.index_select(t, 0, i),
+                         (slab, idx), n * 4 + s * DIM * isz + n * DIM * isz, f"{s}_{tag}",
+                         dtype=tag, slab=[s, DIM], n=n, library="torch.index_select")
+    del slab, idx
+
+    # K7: 2^18 random rows of a (2^18, 256) f32 table
+    v7 = n7 = 1 << 18
+    x = torch.randn((v7, DIM), generator=gen, device="cuda")
+    idx = torch.randint(0, v7, (n7,), generator=gen, device="cuda", dtype=torch.int32)
+    gather_check("dma_gather", gather_cuda.dma_gather_cuda, gather_cuda.gather_rows_plain,
+                 lambda t, i: torch.index_select(t, 0, i), (x, idx),
+                 n7 * 4 + (_unique(idx) + n7) * DIM * 4, "float32",
+                 dtype="float32", table=[v7, DIM], n=n7, library="torch.index_select")
+    del x, idx
+
+    # K8: probe_topk's (262144, 256) at 32 random in-row indices, and its
+    # (256, 256) at the indices 0..31
+    for r, dtype in ((262144, torch.float32), (262144, torch.bfloat16), (256, torch.float32)):
+        tag = str(dtype).split(".")[-1]
+        isz = torch.finfo(dtype).bits // 8
+        x = torch.randn((r, DIM), generator=gen, device="cuda").to(dtype)
+        if r == 256:
+            idx = torch.arange(K, device="cuda", dtype=torch.int32).repeat(r, 1)
+        else:
+            idx = torch.randint(0, DIM, (r, K), generator=gen, device="cuda", dtype=torch.int32)
+        idx64 = idx.long()
+        touched = _unique(idx64 + DIM * torch.arange(r, device="cuda")[:, None])
+        gather_check("take_along_rows", gather_cuda.take_along_rows_cuda,
+                     gather_cuda.take_along_rows_plain,
+                     lambda t, i, i64=idx64: torch.gather(t, 1, i64), (x, idx),
+                     r * K * (4 + isz) + touched * isz, f"{r}_{tag}",
+                     dtype=tag, shape=[r, DIM], k=K, library="torch.gather")
+    return res
+
+
+def phase_bench(csr):
+    """`python -m maxk_tpu_torch.bench`'s record on the reddit ×1.0 graph."""
+    from maxk_tpu_torch.bench.bench import run_bench
+
+    t0 = time.perf_counter()
+    rec = run_bench(csr, k=K, dim=DIM, mode="auto", device="cuda", label="reddit x1.0")
+    emit("bench", seconds=time.perf_counter() - t0, **rec)
+    require(rec["value"] > 0 and math.isfinite(rec["value"]), f"bench: record {rec}")
+
+
+def phase_kernel_bench():
+    """The kernel suite: the five training graphs at scale 0.02, k 16/32/64,
+    validated; its text lines go to stderr."""
+    from maxk_tpu_torch.bench import kernel_bench
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        recs = kernel_bench.main(["--device", "cuda", "--scale", "0.02", "--validate"])
+    keep = ("graph", "V", "E", "k", "t_mask_ms", "t_fwd_ms", "t_fwd_bwd_ms", "t_fwd_cbsr_ms",
+            "t_fwd_bwd_cbsr_ms", "t_baseline_ms", "t_baseline_bf16_ms", "valid")
+    emit("kernel_bench", seconds=time.perf_counter() - t0,
+         records=[{**{f: r[f] for f in keep}, "max_err": r["validation"]["max_err"],
+                   "mean_err": r["validation"]["mean_err"]} for r in recs])
+    require(len(recs) == 15 and all(r["valid"] for r in recs),
+            f"kernel_bench: {sum(r['valid'] for r in recs)} of {len(recs)} records valid")
+
+
+def phase_probes(bg, sched) -> dict:
+    """probe_topk (K4, K1, K8) at its default size, and probe_bricks (K5,
+    f32 and bf16) on its default graph `bg` and schedule `sched`; each exits
+    non-zero on a failed check. Returns K5's times and bound by dtype."""
+    from maxk_tpu_torch.bench import probe_bricks, probe_topk
+
+    t0 = time.perf_counter()
+    t = probe_topk.main(["--device", "cuda"])
+    emit("probe_topk", seconds=time.perf_counter() - t0,
+         **{f"{k}_ms": 1e3 * s for k, s in t.items()})
+    k5 = {}
+    v, nnz = bg.num_nodes, bg.nnz
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        out = probe_bricks.probe(bg, sched, DIM, dtype)
+        emit("probe_bricks", seconds=time.perf_counter() - t0, **out)
+        lib = out["library_s"]
+        # the function Y = A @ X: the CSR (row pointers, column indices, f32
+        # values) and X read once, Y written once; 2·nnz·D operations. The
+        # brick algorithm's dense flushes do far more (flush_tflop).
+        isz = 4 if dtype == "float32" else 2
+        k5[dtype] = dict(ms=1e3 * out["bricks_s"], plain_ms=1e3 * out["plain_s"],
+                         library_ms=None if lib is None else 1e3 * lib,
+                         flush_tflop=out["stats"]["flush_tflop"],
+                         **bound((v + 1) * 4 + nnz * 8 + 2 * v * DIM * isz, 2 * nnz * DIM, dtype))
+    return k5
+
+
+def phase_micro():
+    from maxk_tpu_torch.bench import micro
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        t = micro.main(["--device", "cuda"])
+    emit("micro", seconds=time.perf_counter() - t0,
+         **{f"{k}_ms": 1e3 * s for k, s in t.items()})
 
 
 def phase_small_slice():
@@ -405,8 +625,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from maxk_tpu_torch.ops import cbsr_cuda, topk_cuda
+    from maxk_tpu_torch.ops import cbsr_cuda, gather_cuda, spmm_bricks, topk_cuda
 
+    # name: (wrapper, source, the TPU kernel it replaces, the check whose
+    # numbers the kernels line reports)
     wrappers = {
         "maxk_mask": (topk_cuda.maxk_mask_cuda, "maxk_tpu_torch/csrc/maxk_mask.cu",
                       "maxk_tpu/ops/topk_pallas.py:99", "float32"),
@@ -416,24 +638,43 @@ def main() -> int:
                          "maxk_tpu/ops/cbsr_pallas.py:42", "bfloat16"),
         "cbsr_sample": (cbsr_cuda.sample_cuda, "maxk_tpu_torch/csrc/cbsr.cu",
                         "maxk_tpu/ops/cbsr_pallas.py:52", "bfloat16"),
+        "spmm_bricks": (spmm_bricks.spmm_bricks_cuda, "maxk_tpu_torch/csrc/spmm_bricks.cu",
+                        "maxk_tpu/ops/spmm_bricks.py:37", "float32"),
+        "slab_gather": (gather_cuda.slab_gather_cuda, "maxk_tpu_torch/csrc/gather.cu",
+                        "maxk_tpu/bench/micro.py:142", "2048_float32"),
+        "dma_gather": (gather_cuda.dma_gather_cuda, "maxk_tpu_torch/csrc/gather.cu",
+                       "maxk_tpu/bench/micro.py:204", "float32"),
+        "take_along_rows": (gather_cuda.take_along_rows_cuda, "maxk_tpu_torch/csrc/gather.cu",
+                            "maxk_tpu/bench/probe_topk.py:96", "262144_float32"),
     }
+    counts = {}
+
+    def reset():
+        for fn, *_ in wrappers.values():
+            fn.launches = 0
+
+    def read(path):
+        counts[path] = {name: w[0].launches for name, w in wrappers.items()}
+        emit("launches", path=path, **counts[path])
+        return counts[path]
+
     try:
         smi = phase_identity()
         phase_build()
         data, graph = phase_data()
         checks = phase_kernels(graph.num_nodes)
+        bg, sched = brick_inputs()
+        checks.update(phase_bench_kernels(bg, sched))
         phase_small_slice()
         phase_sharded_small()
 
         # the single-device main path: the op, then training
-        for fn, *_ in wrappers.values():
-            fn.launches = 0
+        reset()
         phase_op(graph)
         del graph
         torch.cuda.empty_cache()
         phase_train(data)
-        single = {name: w[0].launches for name, w in wrappers.items()}
-        emit("launches", path="single_device", **single)
+        single = read("single_device")
         for name in ("maxk_mask", "cbsr_densify", "cbsr_sample"):
             require(single[name] > 0, f"{name} was not launched on the main path")
         require(single["maxk_mask"] >= LAYERS * EPOCHS,
@@ -441,22 +682,34 @@ def main() -> int:
 
         # the row-partitioned path (counts reset inside, read right after)
         torch.cuda.empty_cache()
-        sharded = phase_sharded_train(data, {name: w[0] for name, w in wrappers.items()})
-        emit("launches", path="sharded", **sharded)
+        counts["sharded"] = phase_sharded_train(data, {name: w[0] for name, w in wrappers.items()})
+        emit("launches", path="sharded", **counts["sharded"])
+
+        # the benchmark path, through the entry points of maxk_tpu_torch.bench
+        torch.cuda.empty_cache()
+        reset()
+        phase_bench(data.csr)
+        del data
+        phase_kernel_bench()
+        for tag, t in phase_probes(bg, sched).items():
+            checks[("spmm_bricks", tag)].update(t)
+        del bg, sched
+        phase_micro()
+        bench = read("bench")
+        for name, n in bench.items():
+            require(n > 0, f"{name} was not launched on the benchmark path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     kernels = []
-    for name, (_, source, replaces, dtype) in wrappers.items():
-        err, ms, plain = checks[(name, dtype)]
+    for name, (_, source, replaces, key) in wrappers.items():
+        by_path = {path: c[name] for path, c in counts.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": single[name] + sharded[name],
-            "launches_by_path": {"single_device": single[name], "sharded": sharded[name]},
-            "dtype": dtype,
-            "max_abs_err": max(checks[(name, d)][0] for d in ("float32", "bfloat16")),
-            "ms": ms, "plain_ms": plain,
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "check": key,
+            **checks[(name, key)],
+            "max_abs_err": max(c["max_abs_err"] for (n, _), c in checks.items() if n == name),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

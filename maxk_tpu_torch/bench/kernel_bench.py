@@ -1,0 +1,246 @@
+"""Kernel benchmark suite, on the card. Port of `maxk_tpu/bench/kernel_bench.py`.
+
+    python -m maxk_tpu_torch.bench.kernel_bench                 # default suite
+    python -m maxk_tpu_torch.bench.kernel_bench --graphs reddit flickr --k 16 32
+    python -m maxk_tpu_torch.bench.kernel_bench --validate      # oracle check
+    python -m maxk_tpu_torch.bench.kernel_bench --dir DIR       # real binaries
+    python -m maxk_tpu_torch.bench.kernel_bench --device cpu --scale 0.002 ...
+
+Every graph × k ∈ {16, 32, 64}, as the reference protocol
+(`kernels/main.cu`): the dense baseline in f32 and bf16 (the cuSPARSE
+role), then per k the production masked arm (K1, then the SpMM on the
+masked bf16 features, forward and forward + backward) and the CBSR arm
+(`maxk_spgemm`, forward and forward + backward). Prints the reference's
+text lines (`n graph dim k kernel ms`) on stdout and returns the records,
+also written to `--json_out`; each record carries the same keys as the
+reference's, `cbsr_val_dtype` included. `--validate` holds `maxk_spgemm`
+against the plain path (plain densify + segment-sum SpMM) per k.
+
+Graphs: `--dir` loads `<name>.indptr/.indices` binaries; otherwise the
+port's host R-MAT at the dataset's size × `--scale` (the reference draws
+its instance on the device). `auto` resolves to segsum; the hybrid and
+tile modes, and their flags, are not ported (ROADMAP A12, A13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+# default synthetic suite: the 5 training graphs at benchmark scale
+DEFAULT_GRAPHS = ["flickr", "yelp", "reddit", "ogbn-proteins", "ogbn-products"]
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def load_suite(args):
+    """(name, raw CSR on the CPU) for each graph of the suite."""
+    from maxk_tpu_torch.data.datasets import DATASETS
+    from maxk_tpu_torch.data.io import list_graph_binaries, load_graph_binary
+    from maxk_tpu_torch.data.synthetic import rmat_graph
+
+    if args.dir:
+        for prefix in list_graph_binaries(args.dir):
+            yield prefix.rsplit("/", 1)[-1], load_graph_binary(prefix)
+        return
+    for name in args.graphs:
+        if name.startswith("rmat_"):
+            # rmat_v<nodes>_d<avg_degree>, scaled like the named datasets
+            parts = dict((p[0], int(p[1:])) for p in name.split("_")[1:])
+            nodes = parts.get("v", 262144)
+            v = max(int(nodes * args.scale), 64)
+            e = max(int(nodes * parts.get("d", 50) * args.scale), 256)
+        else:
+            spec = DATASETS[name]
+            v = max(int(spec.num_nodes * args.scale), 64)
+            e = max(int(spec.num_edges * args.scale), 256)
+        yield name, rmat_graph(v, e, seed=123)
+
+
+def validate_graph(graph, cbsr, dim, mode, tol=1e-3, compute_dtype=None):
+    """`maxk_spgemm` against the plain path (`densify_plain`, then the
+    segment-sum SpMM), with the reference's error forensics
+    (`direct_kernel_interface.py:221-372`); ok when the mean error < tol."""
+    from maxk_tpu_torch.ops.cbsr_cuda import densify_plain
+    from maxk_tpu_torch.ops.spgemm import maxk_spgemm
+    from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
+
+    with torch.no_grad():
+        y = maxk_spgemm(graph, cbsr, dim=dim, mode=mode, compute_dtype=compute_dtype)
+        v, d = y.shape
+        vals = cbsr.values
+        # above 2 GB of (V, dim) f32 the oracle's features drop to
+        # compute_dtype (its sum stays f32), as the reference's does
+        if compute_dtype is not None and v * d * 4 > (2 << 30):
+            vals = vals.to(compute_dtype)
+        ref = spmm_segsum(graph.csr, densify_plain(vals, cbsr.selector, dim))
+        err = (y.float() - ref.float()).abs()
+        del y, ref
+        max_err, mean_err = float(err.max()), float(err.mean())
+        detail = {
+            "max_err": max_err,
+            "mean_err": mean_err,
+            "argmax": [int(i) for i in np.unravel_index(int(err.argmax()), (v, d))],
+            "n_gt_0.1": int((err > 0.1).sum()),
+            "n_gt_0.5": int((err > 0.5).sum()),
+        }
+    return mean_err < tol, detail
+
+
+def _vdot_f32(a, b):
+    return torch.vdot(a.float().flatten(), b.float().flatten())
+
+
+def main(argv=None):
+    from maxk_tpu_torch.bench.micro import timeit
+    from maxk_tpu_torch.ops.dispatch import resolve_mode
+    from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
+    from maxk_tpu_torch.ops.topk_cuda import maxk_mask_fast
+    from maxk_tpu_torch.sparse.cbsr import CBSR
+    from maxk_tpu_torch.sparse.csr import with_norm
+    from maxk_tpu_torch.sparse.graph import Graph
+    from maxk_tpu_torch.train.loop import resolve_device
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--graphs", nargs="+", default=DEFAULT_GRAPHS)
+    p.add_argument("--dir", default="", help="directory of .indptr binaries")
+    p.add_argument("--k", nargs="+", type=int, default=[16, 32, 64])
+    p.add_argument("--dim", type=int, default=256)
+    p.add_argument("--scale", type=float, default=0.02)
+    p.add_argument("--mode", default="auto")
+    p.add_argument("--validate", action="store_true")
+    p.add_argument("--json_out", default="")
+    p.add_argument(
+        "--io_itemsize", type=int, default=4,
+        help="2 runs the masked and CBSR arms' (V, dim) IO in bf16",
+    )
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    mode = resolve_mode(args.mode).value
+    base_mode = "segsum"  # the library arm: tiles are not ported (ROADMAP A12)
+    bf16 = torch.bfloat16
+
+    def rand(shape, seed, dtype=torch.float32):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    results = []
+
+    def dump():
+        if args.json_out:
+            with open(args.json_out, "w") as f:
+                json.dump(results, f, indent=1)
+
+    for n, (name, g) in enumerate(load_suite(args)):
+        g = with_norm(g, "right").to(device)
+        # the backward arms run A, not Aᵀ, as the reference suite's do
+        # (`kernel_bench.py:271`): the same work, and no transpose to build
+        graph = Graph(csr=g, csc=g)
+        v = g.num_nodes
+        e_real = int((g.values != 0).sum())
+        x_dense = rand((v, args.dim), 123)
+        t_base = timeit(lambda x: spmm(graph, x, mode=base_mode), x_dense, iters=4)
+        print(f"{n} {name} {args.dim} - cusparse_role {t_base*1e3:.4f}", flush=True)
+        t_base16 = timeit(lambda x: spmm(graph, x.to(bf16), mode=base_mode), x_dense, iters=4)
+        print(f"{n} {name} {args.dim} - cusparse_role_bf16 {t_base16*1e3:.4f}", flush=True)
+        del x_dense
+        # (V, dim) IO in bf16 once an f32 pair no longer fits beside the
+        # graph, or on request (the reference's rule)
+        io_dtype = bf16 if args.io_itemsize == 2 or v * args.dim * 4 > (2 << 30) else torch.float32
+        for k in args.k:
+            # production arm: densify(topk(x)) ≡ x ⊙ mask on one device, so
+            # the layer's SpMM runs on the masked bf16 features; the mask
+            # (K1) is timed on its own
+            x_k = rand((v, args.dim), 300 + k, io_dtype)
+            t_mask = timeit(lambda x: maxk_mask_fast(x, k), x_k, iters=4)
+            print(f"{n} {name} {args.dim} {k} maxk_mask {t_mask*1e3:.4f}", flush=True)
+            xm = maxk_mask_fast(x_k, k).to(bf16)
+            del x_k
+            t_fwd = timeit(lambda x: spmm(graph, x, mode=mode), xm, iters=4)
+            print(f"{n} {name} {args.dim} {k} maxk_fwd {t_fwd*1e3:.4f}", flush=True)
+            ct16 = rand((v, args.dim), 200 + k, bf16)
+
+            def masked_fwd_bwd(x):
+                xr = x.detach().requires_grad_(True)
+                loss = _vdot_f32(spmm(graph, xr, mode=mode), ct16)
+                loss.backward()
+                return loss, xr.grad
+
+            t_fb = timeit(masked_fwd_bwd, xm, iters=4)
+            print(f"{n} {name} {args.dim} {k} maxk_fwd_bwd {t_fb*1e3:.4f}", flush=True)
+            del xm, ct16
+
+            # CBSR arm (the sharded path's input; backward to the compact
+            # (V, k) gradient); output and cotangent in the values' dtype
+            vals = rand((v, k), k, io_dtype)
+            gen = torch.Generator(device=device).manual_seed(100 + k)
+            sel = torch.randint(0, args.dim, (v, k), generator=gen, device=device,
+                                dtype=torch.int32)
+            cbsr = CBSR(values=vals, selector=sel)
+            t_fwd_cbsr = timeit(
+                lambda: maxk_spgemm(graph, cbsr, dim=args.dim, mode=mode, compute_dtype=bf16),
+                iters=4,
+            )
+            print(f"{n} {name} {args.dim} {k} maxk_fwd_cbsr {t_fwd_cbsr*1e3:.4f}", flush=True)
+            ct = rand((v, args.dim), 200 + k, io_dtype)
+
+            def cbsr_fwd_bwd():
+                va = vals.detach().requires_grad_(True)
+                y = maxk_spgemm(graph, CBSR(va, sel), dim=args.dim, mode=mode,
+                                compute_dtype=bf16)
+                loss = _vdot_f32(y, ct)
+                loss.backward()
+                return loss, va.grad
+
+            t_fb_cbsr = timeit(cbsr_fwd_bwd, iters=4)
+            print(f"{n} {name} {args.dim} {k} maxk_fwd_bwd_cbsr {t_fb_cbsr*1e3:.4f}",
+                  flush=True)
+            del ct
+            rec = {
+                "graph": name,
+                "V": v,
+                "E": e_real,
+                "k": k,
+                "mode": mode,
+                "base_mode": base_mode,
+                "maxk_input": "masked_dense",
+                "t_mask_ms": t_mask * 1e3,
+                "t_fwd_ms": t_fwd * 1e3,
+                "t_fwd_bwd_ms": t_fb * 1e3,
+                "t_fwd_cbsr_ms": t_fwd_cbsr * 1e3,
+                "t_fwd_bwd_cbsr_ms": t_fb_cbsr * 1e3,
+                "t_baseline_ms": t_base * 1e3,
+                "t_baseline_bf16_ms": t_base16 * 1e3,
+                "fwd_gnnz_s": e_real / t_fwd / 1e9,
+                "speedup_vs_baseline": t_base / t_fwd,
+                # the compact (V, k) gradient of the CBSR backward against the
+                # masked path's (V, dim) bf16 one, each at its real dtype
+                "bwd_grad_bytes_cbsr": v * k * vals.element_size(),
+                "bwd_grad_bytes_masked": v * args.dim * 2,
+                "cbsr_val_dtype": str(io_dtype).split(".")[-1],
+                "mask_dtype": str(io_dtype).split(".")[-1],
+            }
+            # the timing record is kept before validation, and again with it
+            results.append(rec)
+            dump()
+            if args.validate:
+                ok, detail = validate_graph(graph, cbsr, args.dim, mode, compute_dtype=bf16)
+                rec["valid"] = ok
+                rec["validation"] = detail
+                log(f"  validate k={k}: ok={ok} {detail}")
+                dump()
+            del vals, sel, cbsr
+    if args.json_out:
+        log(f"wrote {args.json_out} ({len(results)} records)")
+    return results
+
+
+if __name__ == "__main__":
+    main()

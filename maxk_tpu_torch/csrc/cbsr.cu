@@ -19,7 +19,8 @@
 // same slot). The sum is taken in f32 and rounded once: the TPU kernel
 // rounds after every add in the output dtype, so with bf16 and duplicate
 // selectors the two may differ by one bf16 ulp.
-// sample design: one thread per (r, l); a bounds check on the selector.
+// sample design: one thread per (r, l); a bounds check on the selector
+// (`maxk::gather_in_row`, which gather.cu's take-along-rows shares).
 #include "common.cuh"
 
 namespace {
@@ -59,13 +60,8 @@ template <typename T>
 __global__ void sample_kernel(const T* __restrict__ z, const int* __restrict__ sel,
                               T* __restrict__ out, int64_t n, int k, int dim) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int c = sel[i];
-    if (c >= 0 && c < dim)
-      out[i] = z[(i / k) * dim + c];
-    else
-      maxk::store_f32(out + i, 0.0f);
-  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    maxk::gather_in_row(z, sel, out, i, k, dim);
 }
 
 template <typename T>

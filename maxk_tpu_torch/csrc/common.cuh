@@ -1,7 +1,8 @@
 // Shared helpers for the maxk_tpu_torch kernels: float32 and bfloat16
-// element access through one float-valued interface, and the exact row
+// element access through one float-valued interface, the exact row
 // top-k selection shared by the MaxK mask (maxk_mask.cu) and the top-k →
-// CBSR kernel (topk_cbsr.cu).
+// CBSR kernel (topk_cbsr.cu), and the in-row gather shared by the CBSR
+// sample (cbsr.cu) and the take-along-rows kernel (gather.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,6 +77,21 @@ __device__ __forceinline__ uint32_t row_topk_mask(const uint32_t (&key)[NPL], in
     take |= (uint32_t)t << i;
   }
   return take;
+}
+
+// Element i of an in-row gather over (rows, k) slots:
+// out[i] = z[i / k, sel[i]] for a selector in [0, dim), and 0 otherwise; a
+// selector outside the row is never used as an address.
+template <typename T>
+__device__ __forceinline__ void gather_in_row(const T* __restrict__ z,
+                                              const int* __restrict__ sel,
+                                              T* __restrict__ out, int64_t i, int k,
+                                              int dim) {
+  const int c = sel[i];
+  if (c >= 0 && c < dim)
+    out[i] = z[(i / k) * dim + c];
+  else
+    store_f32(out + i, 0.0f);
 }
 
 }  // namespace maxk

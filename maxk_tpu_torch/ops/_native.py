@@ -39,6 +39,13 @@ SIGNATURES = {
     "cbsr_densify_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "cbsr_sample_f32": (_P, _P, _P, _I, _I, _I, _P),
     "cbsr_sample_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "spmm_bricks_f32": (_P,) * 7 + (_I,) * 11 + (_P,),
+    "spmm_bricks_bf16": (_P,) * 7 + (_I,) * 11 + (_P,),
+    "slab_gather_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "slab_gather_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "dma_gather": (_P, _P, _P, _I, _I, _I, _P),
+    "take_rows_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "take_rows_bf16": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -121,9 +128,10 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(name: str, t, dtypes) -> None:
-    """Raise unless `t` is a contiguous 2-D CUDA tensor of one of `dtypes`
-    on the current device (the kernels launch on its current stream)."""
+def check(name: str, t, dtypes, ndim: int = 2) -> None:
+    """Raise unless `t` is a contiguous `ndim`-D CUDA tensor of one of
+    `dtypes` on the current device (the kernels launch on its current
+    stream)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.device.index != torch.cuda.current_device():
@@ -133,12 +141,12 @@ def check(name: str, t, dtypes) -> None:
         )
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if t.dim() != 2:
-        raise ValueError(f"{name}: expected a 2-D tensor, got {tuple(t.shape)}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected a {ndim}-D tensor, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
-    if t.shape[0] >= 2**31:
-        raise ValueError(f"{name}: {t.shape[0]} rows exceed the int32 range")
+    if any(n >= 2**31 for n in t.shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} exceeds the int32 range")
 
 
 def launch(name: str, *args) -> None:

@@ -1,0 +1,173 @@
+"""The port's benchmark entry points (maxk_tpu_torch/bench/) and the plain
+versions of the gather kernels K6-K8 (ops/gather_cuda.py), on the CPU.
+
+K6 and K7 compute `jnp.take(slab, idx, axis=0)` and K8
+`jnp.take_along_axis(x, idx, axis=1)` (the reference's probe checks K8's
+Pallas body against the same function): the plain versions must equal them
+bit for bit. The entry points run at tiny sizes with `--device cpu`, where
+every kernel wrapper takes its plain version."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from maxk_tpu_torch.bench import kernel_bench, micro, probe_bricks, probe_topk
+from maxk_tpu_torch.ops import gather_cuda
+from maxk_tpu_torch.ops.dispatch import resolve_mode
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+TINY = ["--graphs", "flickr", "--k", "8", "--scale", "0.002", "--validate"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,d,n", [(64, 32, 1000), (300, 48, 77), (1, 16, 5)])
+def test_row_gather_plain_is_jnp_take(s, d, n, dtype):
+    rng = np.random.default_rng(s + n)
+    table = rng.standard_normal((s, d)).astype(np.float32)
+    idx = rng.integers(0, s, n).astype(np.int32)
+    ref = jnp.take(jnp.asarray(table, getattr(jnp, dtype)), jnp.asarray(idx), axis=0)
+    t = torch.from_numpy(table).to(getattr(torch, dtype))
+    i = torch.from_numpy(idx)
+    for fn in (gather_cuda.gather_rows_plain, gather_cuda.slab_gather, gather_cuda.dma_gather):
+        got = fn(t, i)
+        assert got.dtype == t.dtype
+        assert np.array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r,d,k", [(256, 256, 32), (37, 64, 5), (8, 16, 16)])
+def test_take_along_rows_plain_is_jnp_take_along_axis(r, d, k, dtype):
+    rng = np.random.default_rng(r + k)
+    x = rng.standard_normal((r, d)).astype(np.float32)
+    idx = rng.integers(0, d, (r, k)).astype(np.int32)
+    ref = jnp.take_along_axis(jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(idx), axis=1)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    for fn in (gather_cuda.take_along_rows_plain, gather_cuda.take_along_rows):
+        got = fn(xt, torch.from_numpy(idx))
+        assert np.array_equal(np.asarray(got.float()), np.asarray(ref.astype(jnp.float32)))
+
+
+def test_out_of_range_indices_give_zeros():
+    table = torch.randn(10, 8)
+    got = gather_cuda.gather_rows_plain(table, torch.tensor([3, -1, 10, 9], dtype=torch.int32))
+    assert torch.equal(got[0], table[3]) and torch.equal(got[3], table[9])
+    assert torch.equal(got[1:3], torch.zeros(2, 8))
+    idx = torch.tensor([[0, 8, -2]] * 10, dtype=torch.int32)
+    rows = gather_cuda.take_along_rows_plain(table, idx)
+    assert torch.equal(rows[:, 0], table[:, 0]) and not rows[:, 1:].any()
+
+
+def test_bench_entry_prints_one_json_line():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "maxk_tpu_torch.bench", "--device", "cpu", "--scale", "0.002"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1, proc.stdout
+    rec = json.loads(lines[0])
+    # the keys of the record the root bench.py prints
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}
+    assert rec["unit"] == "Gnnz/s" and rec["value"] > 0
+    assert rec["metric"] == "spmm_maxk fwd nnz/s (reddit x0.002, k=32, segsum, cpu)"
+    assert "maxk fwd+bwd" in proc.stderr
+
+
+def test_kernel_bench_records_have_the_reference_keys(monkeypatch, capsys):
+    from maxk_tpu.bench import kernel_bench as jax_kernel_bench
+
+    got = kernel_bench.main(["--device", "cpu", *TINY])
+    out = capsys.readouterr().out.splitlines()
+    # keep the test process's jax config: the reference's main points the
+    # compilation cache elsewhere
+    update = jax.config.update
+    monkeypatch.setattr(jax.config, "update",
+                        lambda k, v: None if "cache" in k else update(k, v))
+    ref = jax_kernel_bench.main(["--platform", "cpu", "--mode", "segsum", *TINY])
+    assert len(got) == len(ref) == 1
+    assert set(got[0]) == set(ref[0])
+    assert got[0]["valid"] and got[0]["cbsr_val_dtype"] == "float32"
+    assert set(got[0]["validation"]) == set(ref[0]["validation"])
+    assert (got[0]["V"], got[0]["k"], got[0]["mode"]) == (ref[0]["V"], 8, "segsum")
+    assert [line.split()[:5] for line in out] == [
+        ["0", "flickr", "256", "-", "cusparse_role"],
+        ["0", "flickr", "256", "-", "cusparse_role_bf16"],
+        *[["0", "flickr", "256", "8", arm] for arm in
+          ("maxk_mask", "maxk_fwd", "maxk_fwd_bwd", "maxk_fwd_cbsr", "maxk_fwd_bwd_cbsr")],
+    ]
+
+
+def test_kernel_bench_io_bf16_and_json_out(tmp_path):
+    path = tmp_path / "suite.json"
+    recs = kernel_bench.main(["--device", "cpu", *TINY, "--io_itemsize", "2",
+                              "--json_out", str(path)])
+    assert recs[0]["cbsr_val_dtype"] == recs[0]["mask_dtype"] == "bfloat16"
+    assert recs[0]["bwd_grad_bytes_cbsr"] == recs[0]["V"] * 8 * 2
+    assert json.loads(path.read_text()) == recs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_probe_bricks_validates_on_cpu(dtype):
+    out = probe_bricks.main(["--device", "cpu", "--v", "700", "--e", "9000", "--dim", "64",
+                             "--dtype", dtype])
+    assert out["max_abs"] / out["ref_scale"] <= out["max_rel_tol"]
+    assert out["stats"]["live_edges"] == out["stats"]["slots"] * out["stats"]["fill"]
+    # the library call in the features' dtype: timed, or the library's own
+    # refusal (the CPU build has no bf16 CSR product)
+    if out["library_s"] is None:
+        assert dtype == "bfloat16" and "BFloat16" in out["library_error"]
+    else:
+        assert out["library_s"] > 0 and "library_error" not in out
+
+
+def test_probe_topk_validates_on_cpu():
+    t = probe_topk.main(["--device", "cpu", "--v", "600", "--d", "64", "--k", "8"])
+    assert set(t) == {"torch_topk", "topk_cbsr", "maxk_mask", "mask_fwd_bwd",
+                      "take_along_rows_256", "take_along_rows_all"}
+    assert all(s > 0 for s in t.values())
+
+
+def test_micro_benchmarks_run_on_cpu(capsys):
+    cpu = dict(device="cpu")
+    micro.bench_plain_gather(500, 32, 2000, **cpu)
+    micro.bench_smem_gather(64, 32, 2000, **cpu)
+    micro.bench_dma_gather(500, 32, 2000, **cpu)
+    micro.bench_onehot_gather(64, 32, 4096, block=1024, **cpu)
+    micro.bench_topk(300, 64, 8, **cpu)
+    micro.bench_segment_sum(100, 32, 3000, **cpu)
+    lines = capsys.readouterr().out.splitlines()
+    assert [line[:2] for line in lines] == ["A.", "B.", "C.", "D.", "E.", "  ", "F."]
+
+
+def test_timeit_uses_the_host_clock_on_cpu():
+    assert micro.timeit(torch.mm, torch.randn(32, 32), torch.randn(32, 32), iters=3) > 0
+
+
+def test_pallas_mode_refuses_with_the_reference_reason():
+    with pytest.raises(NotImplementedError) as e:
+        resolve_mode("pallas")
+    msg = str(e.value)
+    assert "no production kernel" in msg
+    assert "ops.spmm_bricks.spmm_bricks" in msg and "bench.probe_bricks" in msg
+
+
+@pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks"])
+def test_entry_points_default_to_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from maxk_tpu_torch.bench import bench
+
+    main = {"bench": bench.main, "kernel_bench": kernel_bench.main, "micro": micro.main,
+            "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([])

@@ -181,3 +181,125 @@ def test_maxk_spgemm_on_card_matches_cpu(cuda):
         grads.append((y.detach().cpu(), v.grad.cpu()))
     torch.testing.assert_close(grads[1][0], grads[0][0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grads[1][1], grads[0][1], rtol=1e-5, atol=1e-5)
+
+
+def _brick_graph(v, e, seed, empty_tail=False):
+    """CSR with random weights, duplicate edges and, with empty_tail, no edge
+    in the upper half of the rows (empty supergroups)."""
+    import numpy as np
+
+    from maxk_tpu_torch.sparse.csr import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, v // 2 if empty_tail else v, e)
+    cols = rng.integers(0, v, e)
+    order = np.lexsort((cols, rows))
+    indptr = np.zeros(v + 1, np.int64)
+    np.add.at(indptr[1:], rows, 1)
+    return CSRGraph(indptr=torch.from_numpy(np.cumsum(indptr).astype(np.int32)),
+                    indices=torch.from_numpy(cols[order].astype(np.int32)),
+                    values=torch.from_numpy(rng.standard_normal(e).astype(np.float32)))
+
+
+BRICK_CASES = {
+    # default dims; V = 5000 is not a multiple of the 4096-row panel, so the
+    # last panel's windows read X rows past V
+    "default_x_past_v": (lambda: rmat_graph(5000, 60000, seed=3), {}),
+    "small_empty_supergroups": (lambda: _brick_graph(200, 1500, 4, empty_tail=True),
+                                dict(sg=32, panel=64, wb=16, win=32, t=16, ch=4)),
+    "full_fields": (lambda: _brick_graph(700, 6000, 5),
+                    dict(sg=64, panel=256, wb=8, win=4, t=8, ch=2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BRICK_CASES)
+def test_spmm_bricks_kernel_matches_plain(cuda, case, dtype):
+    """K5 against its plain version. float32: probe_bricks' criterion
+    relative to max|ref| (max error 1e-5, mean error 1e-4). bfloat16: element
+    by element, one bf16 ulp (2^-7 of |ref|; both sum in f32, maybe in
+    another order, and round once) plus 1e-5 of max|ref| for sums that
+    cancel."""
+    from maxk_tpu_torch.ops.spmm_bricks import spmm_bricks_cuda, spmm_bricks_plain
+    from maxk_tpu_torch.sparse.bricks import build_bricks
+
+    make, dims = BRICK_CASES[case]
+    g = make()
+    sched = build_bricks(g, **dims).to(cuda)
+    x = torch.randn((g.num_nodes, 80), generator=torch.Generator().manual_seed(1))
+    x = x.to(dtype).to(cuda)
+    before = spmm_bricks_cuda.launches
+    y = spmm_bricks_cuda(sched, x)
+    ref = spmm_bricks_plain(sched, x)
+    torch.cuda.synchronize()
+    assert spmm_bricks_cuda.launches - before == 1
+    assert y.dtype == dtype and y.shape == ref.shape
+    err = (y.float() - ref.float()).abs()
+    scale = ref.float().abs().max()
+    if dtype == torch.float32:
+        assert err.max() <= 1e-5 * scale
+        assert err.mean() <= 1e-4 * scale
+    else:
+        assert (err <= 2.0**-7 * ref.float().abs() + 1e-5 * scale).all()
+    if case == "small_empty_supergroups":
+        assert not y[100:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d", [(2048, 256), (8192, 256), (100, 48), (7, 3)])
+def test_slab_gather_kernel_exact(cuda, s, d, dtype):
+    from maxk_tpu_torch.ops.gather_cuda import gather_rows_plain, slab_gather_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    slab = torch.randn((s, d), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(-2, s + 2, (4097,), generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(_bits(slab_gather_cuda(slab, idx)), _bits(gather_rows_plain(slab, idx)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,dtype", [(1000, 256, torch.float32), (1000, 64, torch.bfloat16),
+                                       (50, 4, torch.float32), (3000, 1024, torch.float32)])
+def test_dma_gather_kernel_exact(cuda, v, d, dtype):
+    from maxk_tpu_torch.ops.gather_cuda import dma_gather_cuda, gather_rows_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(v + d)
+    x = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    # 1000 indices: a ragged last block of 488; some outside the table
+    idx = torch.randint(-2, v + 2, (1000,), generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(_bits(dma_gather_cuda(x, idx)), _bits(gather_rows_plain(x, idx)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d,k", [(300, 256, 32), (5, 7, 3), (262144, 256, 32)])
+def test_take_along_rows_kernel_exact(cuda, r, d, k, dtype):
+    from maxk_tpu_torch.ops.gather_cuda import take_along_rows_cuda, take_along_rows_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    x = torch.randn((r, d), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(-1, d + 1, (r, k), generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(_bits(take_along_rows_cuda(x, idx)), _bits(take_along_rows_plain(x, idx)))
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_count_and_raise(cuda):
+    from maxk_tpu_torch.ops import gather_cuda as gc
+
+    x = torch.randn(64, 64, device=cuda)
+    i1 = torch.zeros(10, dtype=torch.int32, device=cuda)
+    i2 = torch.zeros(64, 4, dtype=torch.int32, device=cuda)
+    counters = (gc.slab_gather_cuda, gc.dma_gather_cuda, gc.take_along_rows_cuda)
+    before = [c.launches for c in counters]
+    gc.slab_gather(x, i1)
+    gc.dma_gather(x, i1)
+    gc.take_along_rows(x, i2)
+    gc.gather_rows_plain(x, i1)  # the plain versions count nothing
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    with pytest.raises(ValueError, match="16-byte"):
+        gc.dma_gather(torch.randn(8, 3, device=cuda), i1)
+    with pytest.raises(ValueError, match="shared memory"):
+        gc.slab_gather(torch.randn(60000, 4, device=cuda), i1)
+    with pytest.raises(TypeError):
+        gc.slab_gather(x, i1.long())
