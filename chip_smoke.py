@@ -41,9 +41,6 @@ DIM, K, LAYERS, EPOCHS = 256, 32, 4, 10
 SHARDED_EPOCHS = 5
 BRICK_V, BRICK_E = 32768, 1_000_000  # probe_bricks' default graph
 TIMED = 20  # launches per kernel timing
-# the H100 SXM's published rates (NVIDIA's data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA cores; bf16 tensor cores
 
 
 class SmokeFailure(Exception):
@@ -65,14 +62,6 @@ def cuda_ms(fn, iters: int) -> float:
     from maxk_tpu_torch.bench.micro import timeit
 
     return 1e3 * timeit(fn, iters=iters, warmup=1)
-
-
-def bound(nbytes: float, flops: float = 0.0, dtype: str = "float32") -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak rate of `dtype`."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def nvidia_smi() -> str:
@@ -125,6 +114,7 @@ def phase_kernels(v: int):
     main path's shapes, timed beside its bound and the library call."""
     import torch
 
+    from maxk_tpu_torch.bench.micro import bound
     from maxk_tpu_torch.ops import cbsr_cuda, topk_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -238,6 +228,7 @@ def phase_bench_kernels(bg, sched):
     shapes, K8 at probe_topk's. K5 is timed by the probe (phase_probes)."""
     import torch
 
+    from maxk_tpu_torch.bench.micro import bound
     from maxk_tpu_torch.ops import gather_cuda, spmm_bricks
 
     res = {}
@@ -281,7 +272,7 @@ def phase_bench_kernels(bg, sched):
         lib = cuda_ms(lambda: library_fn(*args), TIMED)
         b = bound(nbytes)
         emit("kernel", name=name, exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             library_ms=lib, **shape, **b)
+             library_ms=lib, bound_share=b["bound_ms"] / ms, **shape, **b)
         require(exact, f"{name} {shape}: differs from the plain version")
         res[(name, key)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib, **b)
 
@@ -367,20 +358,17 @@ def phase_probes(bg, sched) -> dict:
     emit("probe_topk", seconds=time.perf_counter() - t0,
          **{f"{k}_ms": 1e3 * s for k, s in t.items()})
     k5 = {}
-    v, nnz = bg.num_nodes, bg.nnz
     for dtype in ("float32", "bfloat16"):
         t0 = time.perf_counter()
         out = probe_bricks.probe(bg, sched, DIM, dtype)
         emit("probe_bricks", seconds=time.perf_counter() - t0, **out)
         lib = out["library_s"]
-        # the function Y = A @ X: the CSR (row pointers, column indices, f32
-        # values) and X read once, Y written once; 2·nnz·D operations. The
-        # brick algorithm's dense flushes do far more (flush_tflop).
-        isz = 4 if dtype == "float32" else 2
+        # the bound of the function Y = A @ X on this run's graph, as the
+        # probe computes it (probe_bricks.function_bound)
         k5[dtype] = dict(ms=1e3 * out["bricks_s"], plain_ms=1e3 * out["plain_s"],
                          library_ms=None if lib is None else 1e3 * lib,
-                         flush_tflop=out["stats"]["flush_tflop"],
-                         **bound((v + 1) * 4 + nnz * 8 + 2 * v * DIM * isz, 2 * nnz * DIM, dtype))
+                         heaviest_block_share=out["heaviest_block_share"],
+                         bound_ms=out["bound_ms"], bound_by=out["bound_by"])
     return k5
 
 
@@ -709,6 +697,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path, "check": key,
             **checks[(name, key)],
+            "bound_share": checks[(name, key)]["bound_ms"] / checks[(name, key)]["ms"],
             "max_abs_err": max(c["max_abs_err"] for (n, _), c in checks.items() if n == name),
         })
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,7 @@
 Port of `maxk_tpu/bench/micro.py`:
 
   A. plain row gather from device memory (`index_select`)
-  B. K6: gather from a slab staged in shared memory (`csrc/gather.cu`)
+  B. K6: gather from a slab held in L2 (`csrc/gather.cu`)
   C. K7: row gather by `cp.async`, 16 rows in flight (`csrc/gather.cu`)
   D. gather as a one-hot matrix product (bf16)
   E. `torch.topk` against a full sort (the MaxK selection's role)
@@ -26,6 +26,18 @@ import time
 import torch
 
 from maxk_tpu_torch.ops.gather_cuda import dma_gather, slab_gather
+
+# the H100 SXM's published rates (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA cores; bf16 tensor cores
+
+
+def bound(nbytes: float, flops: float = 0.0, dtype: str = "float32") -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of `dtype`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _tensors(obj):
@@ -86,12 +98,12 @@ def bench_plain_gather(v=262144, d=256, e=4_000_000, dtype=torch.float32, device
     return t
 
 
-def bench_smem_gather(s=2048, d=256, n=1 << 20, dtype=torch.float32, device="cuda"):
+def bench_slab_gather(s=2048, d=256, n=1 << 20, dtype=torch.float32, device="cuda"):
     """K6: rows of an (s, d) slab by n random indices."""
     slab = rand((s, d), dtype, device=device)
     idx = randint((n,), s, device=device)
     t = timeit(slab_gather, slab, idx)
-    print(f"B. K6 shared-memory slab gather (S={s}, D={d}, N={n}, {_name(dtype)}): "
+    print(f"B. K6 L2 slab gather (S={s}, D={d}, N={n}, {_name(dtype)}): "
           f"{t*1e3:.4f} ms  {n/t/1e9:.3f} Grow/s  {n*d*slab.element_size()/t/1e9:.1f} GB/s",
           flush=True)
     return t
@@ -162,9 +174,9 @@ def main(argv=None) -> dict:
     return {
         "plain_gather_f32": bench_plain_gather(device=device),
         "plain_gather_bf16": bench_plain_gather(dtype=bf16, device=device),
-        "smem_gather_s2048_f32": bench_smem_gather(device=device),
-        "smem_gather_s2048_bf16": bench_smem_gather(dtype=bf16, device=device),
-        "smem_gather_s8192_f32": bench_smem_gather(s=8192, device=device),
+        "slab_gather_s2048_f32": bench_slab_gather(device=device),
+        "slab_gather_s2048_bf16": bench_slab_gather(dtype=bf16, device=device),
+        "slab_gather_s8192_f32": bench_slab_gather(s=8192, device=device),
         "dma_gather_f32": bench_dma_gather(device=device),
         "onehot_gather_s512": bench_onehot_gather(device=device),
         "onehot_gather_s2048": bench_onehot_gather(s=2048, device=device),

@@ -11,7 +11,10 @@ max error <= 1e-5 (float32) or 2e-2 (bfloat16); a failure exits non-zero.
 Then times the kernel, its plain version, `spmm_segsum` and the library
 call `torch.sparse.mm` on a CSR tensor with values in the features' dtype
 (where the library has no kernel for that dtype, its error is returned in
-place of the time).
+place of the time). The kernel's line gives the rate of the product's
+2·nnz·D operations and its time as a share of the function's bound (the
+CSR and X read once, Y written once, at the H100's published rates); the
+schedule line gives the heaviest kernel block's share of the live slots.
 Returns the numbers by name. `probe(g, sched, ...)` does the same on a
 graph and schedule already built. `--tiles` (the edge-tile arm) is not
 ported: ROADMAP A12.
@@ -30,6 +33,29 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+def heaviest_block_share(sched) -> float:
+    """The largest share of the live slots that one block of the kernel
+    (a supergroup × row brick; its column slices each read the same slots)
+    takes."""
+    n_sub = sched.meta.numel()
+    rb = (sched.meta.reshape(-1).long() >> 6) & 7
+    block = sched.chunk_sgroup.long().repeat_interleave(sched.ch) * 8 + rb
+    live = (sched.val.reshape(n_sub, -1) != 0).sum(1)
+    per_block = torch.zeros(sched.num_sgroups * 8, dtype=live.dtype, device=live.device)
+    per_block.index_add_(0, block, live)
+    return float(per_block.max()) / max(float(live.sum()), 1.0)
+
+
+def function_bound(v: int, nnz: int, dim: int, dtype: str) -> dict:
+    """The least time the card could take for Y = A @ X (`micro.bound`):
+    the CSR (row pointers, column indices, f32 values) and X read once, Y
+    written once, 2·nnz·D operations at the dtype's peak."""
+    from maxk_tpu_torch.bench.micro import bound
+
+    isz = 4 if dtype == "float32" else 2
+    return bound((v + 1) * 4 + nnz * 8 + 2 * v * dim * isz, 2 * nnz * dim, dtype)
+
+
 def probe(g, sched, dim: int = 256, dtype: str = "float32", validate: bool = True) -> dict:
     """Validate and time K5 on `sched`, the brick schedule of `g`, at D = `dim`.
     Both lie on the device the probe runs on."""
@@ -40,11 +66,13 @@ def probe(g, sched, dim: int = 256, dtype: str = "float32", validate: bool = Tru
 
     v, device = g.num_nodes, g.indptr.device
     st = bricks_stats(sched)
-    log(f"schedule: {st}")
+    share = heaviest_block_share(sched)
+    log(f"schedule: {st}; heaviest block {share:.4f} of the live slots "
+        "(flush_tflop: the reference's dense flush count)")
     dt = getattr(torch, dtype)
     x = rand((v, dim), dt, seed=0, device=device)
     y = spmm_bricks(sched, x)
-    out = {"stats": st, "dtype": dtype}
+    out = {"stats": st, "dtype": dtype, "heaviest_block_share": share}
     if validate:
         ref = spmm_segsum(g, x.float())
         err = (y.float() - ref).abs()
@@ -59,15 +87,18 @@ def probe(g, sched, dim: int = 256, dtype: str = "float32", validate: bool = Tru
             raise SystemExit("probe_bricks: VALIDATION FAILED")
 
     live = g.nnz
-    flop = st["flush_tflop"] * 1e12 * dim / 256
+    flop = 2 * live * dim  # the product's operations
+    b = function_bound(v, live, dim, dtype)
     t = timeit(spmm_bricks, sched, x)
-    log(f"bricks: {t*1e3:.4f} ms  {live/t/1e9:.3f} Gnnz/s  (flush {flop/1e12:.3f} TFLOP "
-        f"-> {flop/t/1e12:.2f} TFLOP/s)")
+    log(f"bricks: {t*1e3:.4f} ms  {live/t/1e9:.3f} Gnnz/s  ({flop/1e9:.3f} GFLOP of 2·nnz·D "
+        f"-> {flop/t/1e12:.3f} TFLOP/s; bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+        f"{b['bound_ms']/(t*1e3):.4f} of it)")
     t_seg = timeit(spmm_segsum, g, x)
     log(f"spmm_segsum: {t_seg*1e3:.4f} ms  {live/t_seg/1e9:.3f} Gnnz/s")
     t_plain = timeit(spmm_bricks_plain, sched, x, iters=4)
     log(f"plain version: {t_plain*1e3:.4f} ms")
-    out.update(bricks_s=t, segsum_s=t_seg, plain_s=t_plain, library_s=None)
+    out.update(bricks_s=t, segsum_s=t_seg, plain_s=t_plain, library_s=None,
+               product_tflop_per_s=flop / t / 1e12, bound_share=b["bound_ms"] / (t * 1e3), **b)
     a = torch.sparse_csr_tensor(g.indptr.long(), g.indices.long(), g.values.to(dt), (v, v),
                                 check_invariants=True)
     try:

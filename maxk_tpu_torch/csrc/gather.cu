@@ -11,17 +11,22 @@
 // never used as an address.
 //
 // Bound on the H100: device memory, all three. Each writes its output once
-// and reads its indices and the gathered rows once (the slab gather reads
-// its small slab once per block; it stays in L2).
+// and reads its indices and the gathered rows once.
 //
-// slab design: a TPU core holds the whole (S, D) slab in VMEM; a block here
-// has at most 227 KB of shared memory, and the slab is 2 MiB (S = 2048, f32)
-// or more. So a block stages one column slice, slab[:, c0:c0+DC], with DC
-// the widest power of two that divides D and keeps S·DC·itemsize within
-// kSlabSmemBytes, and serves a run of indices for that slice; the slices
-// of one run are neighbours in the grid, so the partial rows they write
-// meet in L2. The later design holds the whole slab in the distributed
-// shared memory of a thread-block cluster and serves whole rows.
+// slab design: the TPU core holds the whole (S, D) slab in VMEM. Its
+// counterpart here is the 50 MB L2, not a block's 227 KB of shared memory
+// (the slab is 2-16 MiB); nor is a thread-block cluster's distributed
+// shared memory, whose 16 × 227 KB holds S = 2048 f32 rows of 256 but not
+// 8192. So the slab stays in L2 and every row moves whole: a group of
+// lanes (a warp for a row of 32 or more 16-byte vectors) serves one index,
+// 4 indices in flight, each lane moving 16-byte vectors. The slab is read
+// with an L2 evict-last policy (`createpolicy` + `ld.global.nc.L2::
+// cache_hint`) and the output, 1 GiB for 2^20 rows of 1 KB, is stored with
+// the streaming hint (`st.global.cs`), so it streams past the slab rather
+// than evicting it. Neither sets a persisting-L2 limit nor an access-policy
+// window: no device state outlives the launch. Rows that are not 16-byte
+// multiples move element by element. The slab must fit L2 (the launch reads
+// its size from the device and refuses a larger slab).
 // dma design (the structure of micro.py:204-225): a block takes 512
 // indices and a shared ring of 2·16 rows; every thread owns the same
 // 16-byte chunks of every row, keeps 16 rows of `cp.async` copies in
@@ -30,43 +35,83 @@
 // back only what it copied itself, so no barrier is needed.
 // take-along-rows design: one thread per (r, j), the selector-guarded gather
 // of the CBSR sample (`maxk::gather_in_row`).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kSlabThreads = 1024;
-constexpr int kSlabSmemBytes = 200 * 1024;
-constexpr int kDmaSlots = 16;  // rows of copies in flight
+constexpr int kSlabThreads = 256;
+constexpr int kSlabUnroll = 4;  // indices in flight per lane group
+constexpr int kDmaSlots = 16;   // rows of copies in flight
 constexpr int kDmaRing = 2 * kDmaSlots;
 constexpr int kDmaRowsPerBlock = 512;
 constexpr int kMaxSmemBytes = 227 * 1024;
 
-template <typename T>
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// read through the non-coherent path, kept in L2; store streaming
+__device__ __forceinline__ uint4 load_keep(const uint4* p, uint64_t policy) {
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ unsigned load_keep(const unsigned* p, uint64_t policy) {
+  unsigned v;
+  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;\n" : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ unsigned short load_keep(const unsigned short* p, uint64_t policy) {
+  unsigned short v;
+  asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;\n" : "=h"(v) : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ void store_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void store_stream(unsigned* p, unsigned v) {
+  asm volatile("st.global.cs.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ void store_stream(unsigned short* p, unsigned short v) {
+  asm volatile("st.global.cs.u16 [%0], %1;\n" ::"l"(p), "h"(v) : "memory");
+}
+
+// U: the unit a lane moves, a 16-byte vector or one element's bits; a row
+// is `units` units, served by a group of `lanes` lanes (a power of two <= 32)
+template <typename U>
 __global__ void __launch_bounds__(kSlabThreads)
-    slab_gather_kernel(const T* __restrict__ slab, const int* __restrict__ idx,
-                       T* __restrict__ out, int s, int d, int dc, int64_t n,
-                       int64_t per_block) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* part = reinterpret_cast<T*>(smem);
-  const int c0 = blockIdx.x * dc;
-  for (int i = threadIdx.x; i < s * dc; i += blockDim.x) {
-    const int r = i / dc;
-    part[i] = slab[(int64_t)r * d + c0 + (i - r * dc)];
-  }
-  __syncthreads();
-  // dc and blockDim are powers of two, dc <= blockDim: a thread keeps its
-  // column and steps over the run's indices
-  const int c = threadIdx.x & (dc - 1);
-  const int step = blockDim.x / dc;
-  const int64_t e0 = (int64_t)blockIdx.y * per_block;
-  const int64_t e1 = e0 + per_block < n ? e0 + per_block : n;
-  for (int64_t e = e0 + threadIdx.x / dc; e < e1; e += step) {
-    const int r = idx[e];
-    T* o = out + e * d + c0 + c;
-    if (r >= 0 && r < s)
-      *o = part[r * dc + c];
-    else
-      maxk::store_f32(o, 0.0f);
+    slab_gather_kernel(const U* __restrict__ slab, const int* __restrict__ idx,
+                       U* __restrict__ out, int s, int units, int lanes, int64_t n) {
+  const uint64_t policy = l2_evict_last();
+  const int64_t gt = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t groups = (int64_t)gridDim.x * blockDim.x / lanes;
+  const int j = (int)(gt % lanes);
+  for (int64_t e0 = gt / lanes; e0 < n; e0 += groups * kSlabUnroll) {
+    int r[kSlabUnroll];
+#pragma unroll
+    for (int u = 0; u < kSlabUnroll; ++u) {
+      const int64_t e = e0 + u * groups;
+      r[u] = e < n ? idx[e] : -1;
+    }
+    for (int c = j; c < units; c += lanes) {
+      U v[kSlabUnroll];
+#pragma unroll
+      for (int u = 0; u < kSlabUnroll; ++u)
+        v[u] = r[u] >= 0 && r[u] < s ? load_keep(slab + (int64_t)r[u] * units + c, policy) : U{};
+#pragma unroll
+      for (int u = 0; u < kSlabUnroll; ++u) {
+        const int64_t e = e0 + u * groups;
+        if (e < n) store_stream(out + e * units + c, v[u]);
+      }
+    }
   }
 }
 
@@ -122,35 +167,42 @@ __global__ void take_rows_kernel(const T* __restrict__ x, const int* __restrict_
     maxk::gather_in_row(x, idx, out, i, k, dim);
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
+int device_attribute(cudaDeviceAttr attr) {
+  int dev = 0, value = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  return sms;
+  if (cudaDeviceGetAttribute(&value, attr, dev) != cudaSuccess) return 0;
+  return value;
+}
+
+template <typename U>
+int launch_slab_units(const void* slab, const void* idx, void* out, int s, int units, int n,
+                      cudaStream_t stream) {
+  int lanes = 1;
+  while (lanes < 32 && lanes < units) lanes *= 2;
+  const int sms = device_attribute(cudaDevAttrMultiProcessorCount);
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  // a lane group per index, up to eight blocks an SM
+  const int64_t want = ((int64_t)n * lanes + kSlabThreads - 1) / kSlabThreads;
+  const int64_t blocks = want < 8 * sms ? want : 8 * sms;
+  slab_gather_kernel<U><<<(unsigned)blocks, kSlabThreads, 0, stream>>>(
+      static_cast<const U*>(slab), static_cast<const int*>(idx), static_cast<U*>(out), s, units,
+      lanes, n);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_slab_gather(const void* slab, const void* idx, void* out, int s, int d, int n,
                        cudaStream_t stream) {
-  const int64_t row = (int64_t)s * sizeof(T);
-  if (s < 1 || d < 1 || n < 1 || row > kSlabSmemBytes) return (int)cudaErrorInvalidValue;
-  int dc = 1;
-  while (dc < kSlabThreads && d % (2 * dc) == 0 && 2 * dc * row <= kSlabSmemBytes) dc *= 2;
-  const int sms = sm_count();
-  if (sms < 1) return (int)cudaErrorInvalidDevice;
-  // about four blocks an SM: runs of indices × column slices
-  const int slices = d / dc;
-  const int64_t runs_wanted = (4 * sms + slices - 1) / slices;
-  const int64_t per_block = (n + runs_wanted - 1) / runs_wanted;
-  const int64_t runs = (n + per_block - 1) / per_block;
-  const int smem = (int)(dc * row);
-  cudaError_t err = cudaFuncSetAttribute(
-      slab_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  slab_gather_kernel<T><<<dim3(slices, (unsigned)runs), kSlabThreads, smem, stream>>>(
-      static_cast<const T*>(slab), static_cast<const int*>(idx), static_cast<T*>(out), s, d,
-      dc, n, per_block);
-  return (int)cudaGetLastError();
+  if (s < 1 || d < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const int64_t row = (int64_t)d * sizeof(T);
+  const int l2 = device_attribute(cudaDevAttrL2CacheSize);
+  if (l2 < 1) return (int)cudaErrorInvalidDevice;
+  if (s * row > l2) return (int)cudaErrorInvalidValue;
+  const bool vec = row % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) return launch_slab_units<uint4>(slab, idx, out, s, (int)(row / 16), n, stream);
+  using Bits = typename std::conditional<sizeof(T) == 4, unsigned, unsigned short>::type;
+  return launch_slab_units<Bits>(slab, idx, out, s, d, n, stream);
 }
 
 template <typename T>
@@ -178,6 +230,14 @@ extern "C" int slab_gather_bf16(const void* slab, const void* idx, void* out, in
                                 int n, void* stream) {
   return launch_slab_gather<__nv_bfloat16>(slab, idx, out, s, d, n,
                                            static_cast<cudaStream_t>(stream));
+}
+
+// The card's L2 size in bytes (cudaDevAttrL2CacheSize of the current device).
+extern "C" int l2_cache_bytes(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrL2CacheSize, dev);
 }
 
 // Rows of any dtype, `row_bytes` a multiple of 16 and both pointers 16-byte

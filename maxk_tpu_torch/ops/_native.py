@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# every entry point: (pointers..., ints..., stream) -> cudaError_t
+# every kernel's entry point: (pointers..., ints..., stream) -> cudaError_t
 SIGNATURES = {
     "maxk_mask_f32": (_P, _P, _P, _I, _I, _I, _P),
     "maxk_mask_bf16": (_P, _P, _P, _I, _I, _I, _P),
@@ -41,11 +41,13 @@ SIGNATURES = {
     "cbsr_sample_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "spmm_bricks_f32": (_P,) * 7 + (_I,) * 11 + (_P,),
     "spmm_bricks_bf16": (_P,) * 7 + (_I,) * 11 + (_P,),
+    "spmm_bricks_smem_bytes": (_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     "slab_gather_f32": (_P, _P, _P, _I, _I, _I, _P),
     "slab_gather_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "dma_gather": (_P, _P, _P, _I, _I, _I, _P),
     "take_rows_f32": (_P, _P, _P, _I, _I, _I, _P),
     "take_rows_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "l2_cache_bytes": (ctypes.POINTER(_I),),
 }
 
 _lib = None
@@ -155,3 +157,13 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def l2_cache_bytes() -> int:
+    """The current card's L2 size in bytes, as the device reports it
+    (`cudaDevAttrL2CacheSize`)."""
+    out = ctypes.c_int(0)
+    err = library().l2_cache_bytes(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"l2_cache_bytes: CUDA error {err}")
+    return out.value

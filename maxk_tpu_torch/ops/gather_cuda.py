@@ -4,8 +4,9 @@ Three TPU kernels become the CUDA kernels of `csrc/gather.cu`, each with
 the same function in plain PyTorch beside it:
 
   K6 `kernel` of `bench_pallas_vmem_gather` (`maxk_tpu/bench/micro.py:142`)
-      → `slab_gather_cuda`: out[e] = slab[idx[e]], the slab staged in
-        shared memory;
+      → `slab_gather_cuda`: out[e] = slab[idx[e]], whole rows served from a
+        slab held in L2 (the TPU kernel's slab in VMEM), so the slab must
+        fit the card's L2;
   K7 `kernel` of `bench_pallas_dma_gather` (`micro.py:204`)
       → `dma_gather_cuda`: out[e] = x[idx[e]] from device memory, 16 rows
         of copies in flight;
@@ -28,9 +29,7 @@ from maxk_tpu_torch.ops import _native
 from maxk_tpu_torch.ops.cbsr_cuda import sample_plain
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# the slab gather's shared-memory budget for one column of the slab
-# (csrc/gather.cu kSlabSmemBytes), and the DMA ring's rows
-SLAB_SMEM_BYTES = 200 * 1024
+# the DMA ring's shared-memory budget and rows (csrc/gather.cu)
 _MAX_SMEM_BYTES = 227 * 1024
 _DMA_RING = 32
 
@@ -57,14 +56,16 @@ def _check_rows(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def slab_gather_cuda(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K6. One slab column (S · itemsize bytes) must fit SLAB_SMEM_BYTES.
-    Counts its launches in `slab_gather_cuda.launches`."""
+    """K6. The slab must fit the card's L2, which serves its rows. Counts
+    its launches in `slab_gather_cuda.launches`."""
     _check_rows("slab_gather", slab, idx)
     s, d = slab.shape
-    if s * slab.element_size() > SLAB_SMEM_BYTES:
+    nbytes = s * d * slab.element_size()
+    l2 = _native.l2_cache_bytes()
+    if nbytes > l2:
         raise ValueError(
-            f"slab_gather: a slab column of {s} rows is {s * slab.element_size()} B, "
-            f"more than the {SLAB_SMEM_BYTES} B of shared memory it is staged in"
+            f"slab_gather: a slab of {nbytes} B is larger than the card's L2 of {l2} B, "
+            "which holds the slab"
         )
     n = idx.shape[0]
     out = torch.empty((n, d), dtype=slab.dtype, device=slab.device)

@@ -14,6 +14,17 @@ Precision, as `spmm_bricks.py:115-120,96`: f32 x runs full f32 products;
 bf16 x rounds the brick to bf16 before its product, with f32
 accumulation. The output is x's dtype, cut to `num_nodes` rows.
 
+The kernel does work that scales with the live slots, not the TPU
+kernel's dense flush per brick: a block keeps an f32 Y tile of WB rows ×
+DC columns (DC = 128, halved while the tile exceeds 64 KB: 32 at WB =
+512) in shared memory, beside the warps' item rings and, for bf16, two
+bitmaps of WB × WIN bits per warp; the kernel's source reports the bytes
+(`spmm_bricks_smem_bytes`). The wrapper refuses a schedule that needs more
+shared memory than a block has, WB above 512 or
+WIN above 128 (lr and lc pack into 7 + N bits), slot counts that are not
+a multiple of 4 and schedule arrays that are not 16-byte aligned (the
+kernel reads 4 slots at once).
+
 `spmm_bricks` runs the kernel for CUDA tensors and the plain version for
 CPU tensors. No training path dispatches here (`kernel_mode="pallas"`
 raises, as in the reference); `bench/probe_bricks.py` drives it.
@@ -21,15 +32,14 @@ raises, as in the reference); `bench/probe_bricks.py` drives it.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from maxk_tpu_torch.ops import _native
 from maxk_tpu_torch.sparse.bricks import BrickSchedule
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# the kernel's shared-memory budget and its column slice (csrc/spmm_bricks.cu)
-_MAX_SMEM_BYTES = 227 * 1024
-_KDS = 16
 # flushes per batched product in the plain version: bounds its (n, WIN, D)
 # window copies
 _FLUSH_BATCH = 4096
@@ -112,17 +122,33 @@ def _check_schedule(sched: BrickSchedule, device) -> None:
             )
 
 
+def _smem_bytes(wb: int, win: int, dtype: torch.dtype) -> tuple[int, int]:
+    """The shared memory a block of the kernel needs for wb × win bricks in
+    `dtype`, and the most a block may have, as the kernel's source gives
+    them (`spmm_bricks_smem_bytes`)."""
+    need, limit = ctypes.c_int(0), ctypes.c_int(0)
+    _native.library().spmm_bricks_smem_bytes(wb, win, int(dtype == torch.bfloat16),
+                                             ctypes.byref(need), ctypes.byref(limit))
+    return need.value, limit.value
+
+
 def spmm_bricks_cuda(sched: BrickSchedule, x: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel. Counts its launches in `spmm_bricks_cuda.launches`."""
     _native.check("spmm_bricks", x, KERNEL_DTYPES)
     _check_x("spmm_bricks", sched, x)
     _check_schedule(sched, x.device)
     v, d = x.shape
-    smem = 4 * ((sched.wb * (sched.win + 1) + 3) // 4 * 4 + sched.win * _KDS + sched.sg * _KDS)
-    if smem > _MAX_SMEM_BYTES:
+    if not (1 <= sched.wb <= 512 and 1 <= sched.win <= 128):
+        raise ValueError(f"spmm_bricks: wb={sched.wb} must be in [1, 512], win={sched.win} "
+                         "in [1, 128]")
+    if sched.slots % 4 or any(getattr(sched, a).data_ptr() % 16 for a in ("idx", "val")):
+        raise ValueError(f"spmm_bricks: {sched.slots} slots a subtile must be a multiple of 4 "
+                         "and idx, val 16-byte aligned")
+    smem, limit = _smem_bytes(sched.wb, sched.win, x.dtype)
+    if smem > limit:
         raise ValueError(
-            f"spmm_bricks: wb={sched.wb}, win={sched.win}, sg={sched.sg} need {smem} B of "
-            f"shared memory, more than {_MAX_SMEM_BYTES}"
+            f"spmm_bricks: wb={sched.wb}, win={sched.win} in {x.dtype} need {smem} B of "
+            f"shared memory, more than {limit}"
         )
     y = torch.empty((sched.num_nodes, d), dtype=x.dtype, device=x.device)
     if sched.num_nodes == 0 or d == 0:

@@ -244,8 +244,10 @@ def build_bricks(
 
 
 def bricks_stats(sched: BrickSchedule) -> dict:
-    """Occupancy diagnostics (host): slot fill rate, chunks, flop estimate
-    (the flush at D = 256, as the reference counts it)."""
+    """Occupancy diagnostics (host): slot fill rate, chunks, and the
+    reference's dense counts: `flush_tflop` is the dense (WB × WIN) @
+    (WIN × 256) flush per brick that the TPU kernel does, not work the CUDA
+    kernel does."""
     val = sched.val.cpu().numpy()
     meta = sched.meta.cpu().numpy()
     live = int((val != 0).sum())

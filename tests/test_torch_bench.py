@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from maxk_tpu_torch.bench import kernel_bench, micro, probe_bricks, probe_topk
+from maxk_tpu_torch.bench import ablate_bricks, kernel_bench, micro, probe_bricks, probe_topk
 from maxk_tpu_torch.ops import gather_cuda
 from maxk_tpu_torch.ops.dispatch import resolve_mode
 
@@ -122,6 +122,10 @@ def test_probe_bricks_validates_on_cpu(dtype):
                              "--dtype", dtype])
     assert out["max_abs"] / out["ref_scale"] <= out["max_rel_tol"]
     assert out["stats"]["live_edges"] == out["stats"]["slots"] * out["stats"]["fill"]
+    # the product's rate and the time's share of the function's bound
+    assert out["product_tflop_per_s"] > 0 and out["bound_by"] == "bytes"
+    assert out["bound_share"] == out["bound_ms"] / (1e3 * out["bricks_s"])
+    assert 0 < out["heaviest_block_share"] <= 1
     # the library call in the features' dtype: timed, or the library's own
     # refusal (the CPU build has no bf16 CSR product)
     if out["library_s"] is None:
@@ -140,7 +144,7 @@ def test_probe_topk_validates_on_cpu():
 def test_micro_benchmarks_run_on_cpu(capsys):
     cpu = dict(device="cpu")
     micro.bench_plain_gather(500, 32, 2000, **cpu)
-    micro.bench_smem_gather(64, 32, 2000, **cpu)
+    micro.bench_slab_gather(64, 32, 2000, **cpu)
     micro.bench_dma_gather(500, 32, 2000, **cpu)
     micro.bench_onehot_gather(64, 32, 4096, block=1024, **cpu)
     micro.bench_topk(300, 64, 8, **cpu)
@@ -161,13 +165,15 @@ def test_pallas_mode_refuses_with_the_reference_reason():
     assert "ops.spmm_bricks.spmm_bricks" in msg and "bench.probe_bricks" in msg
 
 
-@pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks"])
+@pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks",
+                                   "ablate_bricks"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from maxk_tpu_torch.bench import bench
 
     main = {"bench": bench.main, "kernel_bench": kernel_bench.main, "micro": micro.main,
-            "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main}[entry]
+            "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main,
+            "ablate_bricks": ablate_bricks.main}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])

@@ -147,7 +147,37 @@ def test_a_brick_that_ends_twice_flushes_all_it_holds():
     assert torch.equal(y, expect)
 
 
-@pytest.mark.parametrize("bad", [dict(sg=24, wb=16), dict(sg=256, wb=16), dict(panel=128, win=1),
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_handmade_schedule_matches_interpret_kernel(dtype):
+    """The hand-made schedule that tests/test_torch_cuda.py feeds the CUDA
+    kernel, through the Pallas kernel in interpret mode and the plain
+    version: a brick that ends twice, an entry whose two slots straddle a
+    subtile boundary (in bf16 it rounds after the sum), slots outside the
+    brick and a flush outside the panel (its window, clamped in the
+    interpret run, holds X rows past V: zeros). Supergroup 1 (rows 16-31)
+    is left out: it starts without `first`, where the TPU kernel carries the
+    last supergroup's brick and the port starts from an empty one, and it
+    flushes outside the supergroup, which the TPU kernel writes out of its
+    block. Tolerances as in test_plain_matches_interpret_kernel."""
+    from test_torch_cuda import handmade_schedule
+
+    sched = handmade_schedule()
+    js = jb.BrickSchedule(*(jnp.asarray(getattr(sched, a).numpy()) for a in ARRAYS),
+                          num_nodes=sched.num_nodes, num_cols=sched.num_cols, sg=sched.sg,
+                          panel=sched.panel, wb=sched.wb, win=sched.win)
+    x = np.random.default_rng(1).standard_normal((sched.num_cols, 48)).astype(np.float32)
+    ref = np.asarray(jax_spmm_bricks(js, jnp.asarray(x, getattr(jnp, dtype)), interpret=True),
+                     np.float32)[: sched.sg]
+    got = spmm_bricks_plain(sched, torch.from_numpy(x).to(getattr(torch, dtype)))
+    got = got.float().numpy()[: sched.sg]
+    assert np.abs(ref[5]).max() > 0  # the straddling entry (5, 5) flushed
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=2.0**-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad",[dict(sg=24, wb=16), dict(sg=256, wb=16), dict(panel=128, win=1),
                                  dict(wb=1024, sg=1024), dict(t=12)])
 def test_bad_dims_raise(bad):
     dims = dict(DIMS["small"], **bad)

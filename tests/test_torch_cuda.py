@@ -1,5 +1,7 @@
 """The CUDA kernels of maxk_tpu_torch against their plain PyTorch versions,
-on the card. Every test here needs a CUDA device and skips without one.
+on the card. The tests marked `cuda` need a CUDA device and skip without
+one; `test_handmade_schedule_plain` checks, on the CPU, the plain version
+on the hand-made brick schedule that a `cuda` test feeds the kernel.
 
 This file imports torch and maxk_tpu_torch only, so it also runs where jax
 is not installed (the GPU machine); `tests/conftest.py` imports jax, so run
@@ -201,15 +203,111 @@ def _brick_graph(v, e, seed, empty_tail=False):
                     values=torch.from_numpy(rng.standard_normal(e).astype(np.float32)))
 
 
+def _meta(win, rb, first=0, end=0):
+    return win | rb << 6 | first << 9 | end << 10
+
+
+def _slot(lr, lc):
+    return lr << 7 | lc
+
+
+# the hand-made schedule's slots: (chunk, subtile) -> [(lr, lc, value), ...]
+_HANDMADE = {
+    # supergroup 0, panel 0: a brick in subtiles 0-2 that ends twice, with
+    # (5, 5) in subtiles 0 and 1 (its entry 2^-9 after rounding at the sum,
+    # 0 if each slot were rounded to bf16) and two slots outside the brick;
+    # then a brick with (0, 7) held twice in one subtile
+    (0, 0): [(1, 2, 1.5), (5, 5, 1.0 + 2.0**-9), (1, 9, 7.0), (10, 1, 3.0)],
+    (0, 1): [(5, 5, -1.0), (0, 0, 0.75)],
+    (0, 2): [(2, 1, -2.25)],
+    (0, 3): [(0, 7, 0.5), (0, 7, 0.25), (7, 0, 1.25)],
+    # panel 1: a flush outside the panel, a window of X rows past V, and
+    # one half past V
+    (1, 0): [(0, 0, 9.0)],
+    (1, 1): [(3, 3, 4.0)],
+    (1, 2): [(4, 2, -0.5), (4, 6, 2.0)],
+    # supergroup 1: a first subtile without `first`, a flush outside the
+    # supergroup
+    (2, 0): [(3, 1, 5.0)],
+    (2, 1): [(6, 6, -1.5)],
+    (2, 2): [(0, 0, 1.0)],
+    (2, 3): [(1, 1, 8.0)],
+}
+_HANDMADE_META = [
+    [_meta(0, 0, first=1), _meta(0, 0, end=1), _meta(0, 0, end=1), _meta(1, 1, 1, 1)],
+    [_meta(2, 0, 1, 1), _meta(1, 1, 1, 1), _meta(0, 1, 1, 1), 0],
+    [_meta(0, 0), _meta(0, 0, end=1), _meta(0, 1, 1, 1), _meta(0, 3, 1, 1)],
+]
+
+
+def handmade_schedule():
+    """A BrickSchedule written slot by slot (SG = PANEL = 16, WB = WIN = 8,
+    T = 8, CH = 4; 32 output rows, 20 X rows): a brick that ends twice,
+    duplicate slots across two subtiles of one brick and inside one, slots
+    outside the brick, flushes outside the panel and the supergroup, X rows
+    past V and a supergroup whose first subtile lacks `first`. Its first
+    supergroup is also held against the Pallas kernel in interpret mode
+    (tests/test_torch_bricks.py)."""
+    import numpy as np
+
+    from maxk_tpu_torch.sparse.bricks import schedule_from_numpy
+
+    idx = np.zeros((3, 4, 8), np.int32)
+    val = np.zeros((3, 4, 8), np.float32)
+    for (c, j), slots in _HANDMADE.items():
+        for k, (lr, lc, v) in enumerate(slots):
+            idx[c, j, k], val[c, j, k] = _slot(lr, lc), v
+    return schedule_from_numpy([0, 1, 0], [0, 0, 1], np.array(_HANDMADE_META)[:, None, :], idx,
+                               val, num_nodes=32, num_cols=20, sg=16, panel=16, wb=8, win=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_handmade_schedule_plain(dtype):
+    """The plain version on the hand-made schedule against its entries
+    written out: the twice-ended brick flushes all it holds twice, and in
+    bf16 the entry (5, 5) is rounded after its two slots are summed."""
+    from maxk_tpu_torch.ops.spmm_bricks import spmm_bricks_plain
+
+    x = torch.randn((20, 80), generator=torch.Generator().manual_seed(2)).to(dtype)
+    xf = x.float()
+    expect = torch.zeros((32, 80))
+    for row, a, col in [(1, 3.0, 2), (5, 2 * 2.0**-9, 5), (0, 1.5, 0), (2, -2.25, 1),
+                        (8, 0.75, 15), (15, 1.25, 8), (12, -0.5, 18), (19, 5.0, 1),
+                        (22, -1.5, 6), (24, 1.0, 0)]:
+        expect[row] += a * xf[col]
+    y = spmm_bricks_plain(handmade_schedule(), x)
+    assert y.dtype == dtype
+    rtol = 1e-6 if dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(y.float(), expect.to(dtype).float(), rtol=rtol, atol=1e-6)
+
+
+# name: (the schedule, the width D of x)
 BRICK_CASES = {
     # default dims; V = 5000 is not a multiple of the 4096-row panel, so the
     # last panel's windows read X rows past V
-    "default_x_past_v": (lambda: rmat_graph(5000, 60000, seed=3), {}),
-    "small_empty_supergroups": (lambda: _brick_graph(200, 1500, 4, empty_tail=True),
-                                dict(sg=32, panel=64, wb=16, win=32, t=16, ch=4)),
-    "full_fields": (lambda: _brick_graph(700, 6000, 5),
-                    dict(sg=64, panel=256, wb=8, win=4, t=8, ch=2)),
+    "default_x_past_v": (lambda: _build(rmat_graph(5000, 60000, seed=3)), 80),
+    "small_empty_supergroups": (lambda: _build(_brick_graph(200, 1500, 4, empty_tail=True),
+                                               sg=32, panel=64, wb=16, win=32, t=16, ch=4), 80),
+    "full_fields": (lambda: _build(_brick_graph(700, 6000, 5),
+                                   sg=64, panel=256, wb=8, win=4, t=8, ch=2), 80),
+    "handmade": (handmade_schedule, 80),
+    # WB = 256: 64-column slices, two items a warp step; D = 80 leaves a
+    # last slice of 16 columns
+    "wb256": (lambda: _build(_brick_graph(1200, 20000, 6),
+                             sg=1024, panel=512, wb=256, win=64, t=16, ch=4), 80),
+    # WB = 512: 32-column slices, four items a warp step, rows that meet
+    # within a step and a ring that wraps onto slots just read
+    "wb512": (lambda: _build(_brick_graph(1200, 30000, 7),
+                             sg=512, panel=256, wb=512, win=128, t=32, ch=2), 80),
+    # D % 4 != 0: one column a load in place of 4
+    "d78_scalar_loads": (lambda: _build(rmat_graph(5000, 60000, seed=4)), 78),
 }
+
+
+def _build(g, **dims):
+    from maxk_tpu_torch.sparse.bricks import build_bricks
+
+    return build_bricks(g, **dims)
 
 
 @pytest.mark.cuda
@@ -222,12 +320,10 @@ def test_spmm_bricks_kernel_matches_plain(cuda, case, dtype):
     another order, and round once) plus 1e-5 of max|ref| for sums that
     cancel."""
     from maxk_tpu_torch.ops.spmm_bricks import spmm_bricks_cuda, spmm_bricks_plain
-    from maxk_tpu_torch.sparse.bricks import build_bricks
 
-    make, dims = BRICK_CASES[case]
-    g = make()
-    sched = build_bricks(g, **dims).to(cuda)
-    x = torch.randn((g.num_nodes, 80), generator=torch.Generator().manual_seed(1))
+    make, d = BRICK_CASES[case]
+    sched = make().to(cuda)
+    x = torch.randn((sched.num_cols, d), generator=torch.Generator().manual_seed(1))
     x = x.to(dtype).to(cuda)
     before = spmm_bricks_cuda.launches
     y = spmm_bricks_cuda(sched, x)
@@ -247,8 +343,20 @@ def test_spmm_bricks_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+def test_spmm_bricks_shared_memory_fits_the_accepted_dims(cuda):
+    """The wrapper reads the kernel's shared-memory need from its source;
+    at the widest bricks it accepts (WB = 512, WIN = 128) a block fits."""
+    from maxk_tpu_torch.ops.spmm_bricks import _smem_bytes
+
+    for dtype in (torch.float32, torch.bfloat16):
+        need, limit = _smem_bytes(512, 128, dtype)
+        assert 0 < need <= limit
+    assert _smem_bytes(512, 128, torch.bfloat16)[0] > _smem_bytes(512, 128, torch.float32)[0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,d", [(2048, 256), (8192, 256), (100, 48), (7, 3)])
+@pytest.mark.parametrize("s,d", [(2048, 256), (8192, 256), (16384, 256), (100, 48), (7, 3)])
 def test_slab_gather_kernel_exact(cuda, s, d, dtype):
     from maxk_tpu_torch.ops.gather_cuda import gather_rows_plain, slab_gather_cuda
 
@@ -285,6 +393,7 @@ def test_take_along_rows_kernel_exact(cuda, r, d, k, dtype):
 
 @pytest.mark.cuda
 def test_gather_wrappers_count_and_raise(cuda):
+    from maxk_tpu_torch.ops import _native
     from maxk_tpu_torch.ops import gather_cuda as gc
 
     x = torch.randn(64, 64, device=cuda)
@@ -299,7 +408,9 @@ def test_gather_wrappers_count_and_raise(cuda):
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
     with pytest.raises(ValueError, match="16-byte"):
         gc.dma_gather(torch.randn(8, 3, device=cuda), i1)
-    with pytest.raises(ValueError, match="shared memory"):
-        gc.slab_gather(torch.randn(60000, 4, device=cuda), i1)
+    # a slab one row larger than the card's L2
+    l2 = _native.l2_cache_bytes()
+    with pytest.raises(ValueError, match="L2"):
+        gc.slab_gather(torch.empty(l2 // 1024 + 1, 256, device=cuda), i1)
     with pytest.raises(TypeError):
         gc.slab_gather(x, i1.long())
