@@ -17,10 +17,13 @@ the kernel suite on the five training graphs (validated), the MaxK probe
 (K1, K4, K8), the brick probe (K5) and the microbenchmarks (K6, K7).
 Before the paths, every kernel is held against its plain version at its
 path's shapes, and timed beside its bound and, where one exists, the
-PyTorch library call that computes the same function. Each phase prints
-one JSON line; every failure exits non-zero with no `ok` line. The last
-three lines are the kernels record, the card's `nvidia-smi` name and
-power limit, and the `ok` line.
+PyTorch library call that computes the same function; the CBSR densify
+also on the top-k kernel's output, the training path's input. The
+`launch_path` line takes K8's call at probe_topk's (256, 256) apart on the
+host clock, step by step, for the earlier and the current launch path.
+Each phase prints one JSON line; every failure exits non-zero with no
+`ok` line. The last three lines are the kernels record, the card's
+`nvidia-smi` name and power limit, and the `ok` line.
 
 float32 matrix products and convolutions run in full float32 here: TF32 is
 switched off for both.
@@ -31,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -41,6 +45,7 @@ DIM, K, LAYERS, EPOCHS = 256, 32, 4, 10
 SHARDED_EPOCHS = 5
 BRICK_V, BRICK_E = 32768, 1_000_000  # probe_bricks' default graph
 TIMED = 20  # launches per kernel timing
+ROUNDS = 5  # rounds of the launch-path timings
 
 
 class SmokeFailure(Exception):
@@ -151,14 +156,15 @@ def phase_kernels(v: int):
         # in bf16 that may move the one rounding by one ulp (2^-7 relative)
         rtol = 1e-6 if dtype == torch.float32 else 2.0**-7
         ok = torch.allclose(out.float(), ref.float(), rtol=rtol, atol=1e-6)
+        exact = torch.equal(_bits(out), _bits(ref))
         ms = cuda_ms(lambda: cbsr_cuda.densify_cuda(vals, sel, DIM), TIMED)
         plain = cuda_ms(lambda: cbsr_cuda.densify_plain(vals, sel, DIM), TIMED)
         lib = cuda_ms(lambda: torch.zeros((v, DIM), dtype=dtype, device="cuda")
                       .scatter_add_(1, sel64, vals), TIMED)
         b = bound(v * K * (isz + 4) + v * DIM * isz)
-        emit("kernel", name="cbsr_densify", dtype=tag, shape=[v, K], dim=DIM, rtol=rtol,
-             atol=1e-6, ok=ok, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-             library="scatter_add_ into zeros", **b)
+        emit("kernel", name="cbsr_densify", input="random", dtype=tag, shape=[v, K], dim=DIM,
+             rtol=rtol, atol=1e-6, ok=ok, exact=exact, max_abs_err=err, ms=ms, plain_ms=plain,
+             library_ms=lib, library="scatter_add_ into zeros", **b)
         require(ok, f"cbsr_densify {tag}: differs from the plain version beyond rtol {rtol}")
         res[("cbsr_densify", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                           library_ms=lib, **b)
@@ -178,6 +184,28 @@ def phase_kernels(v: int):
              library="torch.topk (selection only, different output layout)", **b)
         require(exact, f"topk_cbsr {tag}: sel/vals differ from the plain version")
         res[("topk_cbsr", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **b)
+
+        # K2 on K4's output, the training path's input: distinct ascending
+        # selectors, one value a column, so bit-equal to the plain version
+        cv = cvals.to(dtype)
+        out = cbsr_cuda.densify_cuda(cv, csel, DIM)
+        ref = cbsr_cuda.densify_plain(cv, csel, DIM)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        exact = torch.equal(_bits(out), _bits(ref))
+        ms = cuda_ms(lambda: cbsr_cuda.densify_cuda(cv, csel, DIM), TIMED)
+        plain = cuda_ms(lambda: cbsr_cuda.densify_plain(cv, csel, DIM), TIMED)
+        csel64 = csel.long()
+        lib = cuda_ms(lambda: torch.zeros((v, DIM), dtype=dtype, device="cuda")
+                      .scatter_add_(1, csel64, cv), TIMED)
+        b = bound(v * K * (isz + 4) + v * DIM * isz)
+        emit("kernel", name="cbsr_densify", input="topk_cbsr", dtype=tag, shape=[v, K], dim=DIM,
+             exact=exact, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+             library="scatter_add_ into zeros", **b)
+        require(exact, f"cbsr_densify {tag} on topk_cbsr's output: differs from the plain version")
+        res[("cbsr_densify", f"topk_cbsr_{tag}")] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                         library_ms=lib, **b)
+        del cv, csel64
 
         z = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
         out = cbsr_cuda.sample_cuda(z, sel)
@@ -260,19 +288,19 @@ def phase_bench_kernels(bg, sched):
         res[("spmm_bricks", tag)] = dict(max_abs_err=err["max_abs"])
         del x, y, ref, e
 
-    def gather_check(name, kernel, plain, library_fn, args, nbytes, key, **shape):
+    def gather_check(name, kernel, plain, library_fn, args, nbytes, key, iters=TIMED, **shape):
         out = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
         exact = torch.equal(_bits(out), _bits(ref))
         err = (out.float() - ref.float()).abs().max().item()
         del out, ref
-        ms = cuda_ms(lambda: kernel(*args), TIMED)
-        plain_ms = cuda_ms(lambda: plain(*args), TIMED)
-        lib = cuda_ms(lambda: library_fn(*args), TIMED)
+        ms = cuda_ms(lambda: kernel(*args), iters)
+        plain_ms = cuda_ms(lambda: plain(*args), iters)
+        lib = cuda_ms(lambda: library_fn(*args), iters)
         b = bound(nbytes)
         emit("kernel", name=name, exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             library_ms=lib, bound_share=b["bound_ms"] / ms, **shape, **b)
+             library_ms=lib, bound_share=b["bound_ms"] / ms, iters=iters, **shape, **b)
         require(exact, f"{name} {shape}: differs from the plain version")
         res[(name, key)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib, **b)
 
@@ -301,7 +329,8 @@ def phase_bench_kernels(bg, sched):
     del x, idx
 
     # K8: probe_topk's (262144, 256) at 32 random in-row indices, and its
-    # (256, 256) at the indices 0..31
+    # (256, 256) at the indices 0..31: a call there is host time, which over
+    # TIMED calls moves by a fifth and more between runs, so 1,000 calls
     for r, dtype in ((262144, torch.float32), (262144, torch.bfloat16), (256, torch.float32)):
         tag = str(dtype).split(".")[-1]
         isz = torch.finfo(dtype).bits // 8
@@ -316,8 +345,128 @@ def phase_bench_kernels(bg, sched):
                      gather_cuda.take_along_rows_plain,
                      lambda t, i, i64=idx64: torch.gather(t, 1, i64), (x, idx),
                      r * K * (4 + isz) + touched * isz, f"{r}_{tag}",
-                     dtype=tag, shape=[r, DIM], k=K, library="torch.gather")
+                     iters=1_000 if r == 256 else TIMED, dtype=tag, shape=[r, DIM], k=K,
+                     library="torch.gather")
     return res
+
+
+def _host_us(fn, iters: int = 10_000, warmup: int = 1_000) -> float:
+    """Mean host time of `fn()` in µs over `iters` calls after `warmup`
+    calls, on the host clock, the device drained before and after."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / iters
+
+
+def phase_launch_path():
+    """K8 at probe_topk's (256, 256), k = 32 at the indices 0..31, where one
+    call is about 3 µs of device work and the wrapper's host time is its
+    time: each step of a call timed alone on the host clock, for the earlier
+    launch path (written out below as it was) and the current one, with
+    `torch.gather` beside them, and both wrappers timed as the kernels line
+    times a kernel (CUDA events over back-to-back calls)."""
+    import torch
+
+    from maxk_tpu_torch.ops import _native, gather_cuda
+
+    name, entry, dtypes = "take_along_rows", "take_rows_f32", gather_cuda.KERNEL_DTYPES
+    r, d = 256, DIM
+    x = torch.randn((r, d), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    idx = torch.arange(K, device="cuda", dtype=torch.int32).repeat(r, 1)
+    idx64 = idx.long()
+    out = torch.empty((r, K), device="cuda")
+    fn = _native._fns[entry]
+
+    def earlier_check(t, dts, ndim=2):
+        # the per-tensor check of the earlier path: the current device by
+        # `torch.cuda.current_device()`, the shape by a generator
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if t.device.index != torch.cuda.current_device():
+            raise ValueError(f"{name}: tensor on {t.device}")
+        if t.dtype not in dts:
+            raise TypeError(name)
+        if t.dim() != ndim:
+            raise ValueError(name)
+        if not t.is_contiguous():
+            raise ValueError(name)
+        if any(n >= 2**31 for n in t.shape):
+            raise ValueError(name)
+
+    def earlier_wrapper(x, idx):
+        earlier_check(x, dtypes)
+        earlier_check(idx, (torch.int32,))
+        rows, dim = x.shape
+        if idx.shape[0] != rows or idx.device != x.device:
+            raise ValueError(name)
+        k = idx.shape[1]
+        o = torch.empty((rows, k), dtype=x.dtype, device=x.device)
+        if rows == 0 or k == 0:
+            return o
+        fn_name = entry if x.dtype == torch.float32 else "take_rows_bf16"
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_native.library(), fn_name)(x.data_ptr(), idx.data_ptr(), o.data_ptr(), rows,
+                                                  k, dim, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+        return o
+
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    earlier = {
+        "check_x2": lambda: (earlier_check(x, dtypes), earlier_check(idx, (torch.int32,))),
+        "devices_match": lambda: idx.device != x.device,
+        "empty": lambda: torch.empty((r, K), dtype=x.dtype, device=x.device),
+        "stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "entry_lookup": lambda: getattr(_native.library(), entry),
+    }
+    current = {
+        "check_x2": lambda: (_native.check(name, x, dtypes),
+                             _native.check(name, idx, (torch.int32,))),
+        "devices_match": lambda: idx.get_device() != x.get_device(),
+        "empty": lambda: x.new_empty((r, K)),
+        "stream": lambda: (x.get_device() != torch._C._cuda_getDevice(),
+                           torch._C._cuda_getCurrentRawStream(x.get_device())),
+        "entry_lookup": lambda: _native._fns[entry],
+    }
+    # the ctypes call is the same on both paths; with rows = 0 the entry
+    # point returns before it launches, which leaves the ctypes part alone
+    shared = {
+        "ctypes_call": lambda: fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, K, d, stream),
+        "ctypes_call_no_launch": lambda: fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), 0, K, d,
+                                            stream),
+    }
+    require(torch.equal(earlier_wrapper(x, idx), gather_cuda.take_along_rows_cuda(x, idx)),
+            "launch path: the earlier and the current wrapper disagree")
+    # the host clock of this machine moves by up to 2x between runs of the
+    # same step: each number is the median of ROUNDS rounds, taken in turns
+    paths = {"earlier_us": {**earlier, **shared, "wrapper": lambda: earlier_wrapper(x, idx)},
+             "current_us": {**current, **shared,
+                            "wrapper": lambda: gather_cuda.take_along_rows_cuda(x, idx)},
+             "torch_gather_us": {"call": lambda: torch.gather(x, 1, idx64)}}
+    rounds = {(path, part): [] for path, parts in paths.items() for part in parts}
+    for _ in range(ROUNDS):
+        for (path, part), times in rounds.items():
+            times.append(_host_us(paths[path][part]))
+    rec = {path: {part: statistics.median(rounds[(path, part)]) for part in parts}
+           for path, parts in paths.items()}
+    rec["call_us_range"] = {key[0]: [min(t), max(t)] for key, t in rounds.items()
+                            if key[1] in ("wrapper", "call")}
+    # as the kernels line times a call (CUDA events over back-to-back calls),
+    # 1,000 calls a run, the median of ROUNDS runs
+    for key, f in (("earlier_ms", paths["earlier_us"]["wrapper"]),
+                   ("current_ms", paths["current_us"]["wrapper"]),
+                   ("torch_gather_ms", paths["torch_gather_us"]["call"])):
+        rec[key] = statistics.median(cuda_ms(f, 1_000) for _ in range(ROUNDS))
+    emit("launch_path", kernel="take_along_rows", shape=[r, d], k=K, iters=10_000, warmup=1_000,
+         rounds=ROUNDS, **rec)
 
 
 def phase_bench(csr):
@@ -653,6 +802,7 @@ def main() -> int:
         checks = phase_kernels(graph.num_nodes)
         bg, sched = brick_inputs()
         checks.update(phase_bench_kernels(bg, sched))
+        phase_launch_path()
         phase_small_slice()
         phase_sharded_small()
 

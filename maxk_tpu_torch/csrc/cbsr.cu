@@ -11,48 +11,120 @@
 // Bound on the H100: device memory. densify reads (V,k) values and
 // selectors and writes (V,D); sample reads (V,k) selectors, the touched
 // part of (V,D) and writes (V,k).
-// densify design: a block takes a few rows, stages their selectors and
-// values (as f32) in shared memory, and each thread owns output columns,
-// summing the row's matching values in l order. Every output element has
-// one writer, so duplicate selectors need no atomics and the sum is
-// deterministic; shared-memory reads are broadcasts (all threads read the
-// same slot). The sum is taken in f32 and rounded once: the TPU kernel
-// rounds after every add in the output dtype, so with bf16 and duplicate
-// selectors the two may differ by one bf16 ulp.
+// densify design: one warp per row, 8 warps a block. Each warp owns an f32
+// row buffer in shared memory, at most kTileCols columns wide; a wider row
+// is walked in column tiles, its selectors once per tile. The warp zeroes
+// the buffer, then walks the row's selectors in chunks of 32 slots, in l
+// order: lane l loads slot l (coalesced; bf16 widened to f32), a selector
+// outside the tile becomes a sentinel, `__match_any_sync` groups the lanes
+// that hold one column, and the lowest lane of each group adds the group's
+// values, shuffled to it in lane order, to what the buffer holds. A column
+// has one writer in a chunk and a `__syncwarp` orders the chunks, so its
+// sum is +0.0 + v[l1] + v[l2] + ... in l order, taken in f32 and rounded
+// once: no atomics, no k compares per output element, the same bits as a
+// sequential sum, and +0.0 for a lone -0.0 value. The warp then writes the
+// row once, as 16-byte vectors where the row's bytes and `out` allow it
+// (streaming stores measured no faster, and slower in bf16). Each warp's
+// row is a chain of latencies (load, group, add, write), so what pays is
+// warps in flight: 8 blocks an SM, 32 registers with every loop rolled.
+// The TPU kernel rounds after every add in the output dtype, so with bf16
+// and duplicate selectors the two may differ by one bf16 ulp.
 // sample design: one thread per (r, l); a bounds check on the selector
 // (`maxk::gather_in_row`, which gather.cu's take-along-rows shares).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kDensifyMaxRows = 8;
-constexpr int kSmemBytes = 48 * 1024;
+constexpr int kDensifyWarps = 8;
+// shared-memory budget of a block's row buffers: 1536 f32 columns a warp
+constexpr int kDensifySmemBytes = 48 * 1024;
+constexpr int kTileCols = kDensifySmemBytes / (kDensifyWarps * (int)sizeof(float));
 
-template <typename T>
-__global__ void densify_kernel(const T* __restrict__ vals,
-                               const int* __restrict__ sel, T* __restrict__ out,
-                               int rows, int k, int dim, int rows_per_block) {
-  extern __shared__ unsigned char smem[];
-  float* s_val = reinterpret_cast<float*>(smem);
-  int* s_sel = reinterpret_cast<int*>(s_val + rows_per_block * k);
-  const int64_t row0 = (int64_t)blockIdx.x * rows_per_block;
-  const int64_t left = rows - row0;
-  const int nr = left < rows_per_block ? (int)left : rows_per_block;
-  for (int i = threadIdx.x; i < nr * k; i += blockDim.x) {
-    s_val[i] = maxk::load_f32(vals + row0 * k + i);
-    s_sel[i] = sel[row0 * k + i];
-  }
-  __syncthreads();
-  for (int r = 0; r < nr; ++r) {
-    const float* v = s_val + r * k;
-    const int* s = s_sel + r * k;
-    T* o = out + (row0 + r) * dim;
-    for (int c = threadIdx.x; c < dim; c += blockDim.x) {
-      float acc = 0.0f;
-      for (int l = 0; l < k; ++l)
-        if (s[l] == c) acc += v[l];
-      maxk::store_f32(o + c, acc);
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// The n columns of `buf` to `o`. kVec: 16-byte vectors (n and `o` allow
+// it: 4 f32 or 8 bf16 columns a vector), otherwise one element a store.
+template <typename T, bool kVec>
+__device__ __forceinline__ void write_row(T* __restrict__ o, const float* __restrict__ buf,
+                                          int n, int lane) {
+  const float4* b4 = reinterpret_cast<const float4*>(buf);
+  uint4* o4 = reinterpret_cast<uint4*>(o);
+  if constexpr (kVec && sizeof(T) == 4) {
+#pragma unroll 1
+    for (int u = lane; u < n / 4; u += 32) {
+      const float4 a = b4[u];
+      o4[u] = make_uint4(__float_as_uint(a.x), __float_as_uint(a.y), __float_as_uint(a.z),
+                         __float_as_uint(a.w));
     }
+  } else if constexpr (kVec) {
+#pragma unroll 1
+    for (int u = lane; u < n / 8; u += 32) {
+      const float4 a = b4[2 * u], b = b4[2 * u + 1];
+      o4[u] = make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
+                         pack_bf16x2(b.z, b.w));
+    }
+  } else {
+#pragma unroll 1
+    for (int c = lane; c < n; c += 32) maxk::store_f32(o + c, buf[c]);
+  }
+}
+
+// tile: the columns a pass takes (min(dim, kTileCols)); stride: a warp's
+// buffer in floats (tile rounded up to a multiple of 4, 16-byte aligned)
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kDensifyWarps * 32, 8)
+    densify_kernel(const T* __restrict__ vals, const int* __restrict__ sel,
+                   T* __restrict__ out, int rows, int k, int dim, int tile, int stride) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kDensifyWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  float* buf = reinterpret_cast<float*>(smem4) + (threadIdx.x >> 5) * stride;
+  const unsigned below = (1u << lane) - 1u;
+  const int* s = sel + r * k;
+  const T* v = vals + r * k;
+#pragma unroll 1
+  for (int t0 = 0; t0 < dim; t0 += tile) {
+    const int tw = dim - t0 < tile ? dim - t0 : tile;
+    const int tw4 = tw & ~3;
+#pragma unroll 1
+    for (int u = lane; u < tw4 / 4; u += 32)
+      reinterpret_cast<float4*>(buf)[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 1
+    for (int c = tw4 + lane; c < tw; c += 32) buf[c] = 0.0f;
+    __syncwarp();
+#pragma unroll 1
+    for (int l0 = 0; l0 < k; l0 += 32) {
+      const int l = l0 + lane;
+      int sc = -1;
+      float x = 0.0f;
+      if (l < k) {  // both loads at once: the value does not wait for the selector
+        sc = s[l];
+        x = maxk::load_f32(v + l);
+      }
+      const int c = sc >= t0 && sc < t0 + tw ? sc - t0 : -1;  // -1: the sentinel
+      const unsigned grp = __match_any_sync(maxk::kFull, c);
+      const bool lead = c >= 0 && (grp & below) == 0;
+      unsigned rest = lead ? grp & (grp - 1u) : 0u;  // the group's later lanes
+      float acc = lead ? buf[c] + x : 0.0f;
+      const unsigned more = __reduce_max_sync(maxk::kFull, (unsigned)__popc(rest));
+#pragma unroll 1
+      for (unsigned i = 0; i < more; ++i) {
+        const int src = rest ? __ffs(rest) - 1 : lane;
+        const float y = __shfl_sync(maxk::kFull, x, src);
+        if (rest) {
+          acc += y;
+          rest &= rest - 1u;
+        }
+      }
+      if (lead) buf[c] = acc;
+      __syncwarp();
+    }
+    write_row<T, kVec>(out + r * dim + t0, buf, tw, lane);
+    __syncwarp();  // the next tile zeroes what the write read
   }
 }
 
@@ -65,18 +137,24 @@ __global__ void sample_kernel(const T* __restrict__ z, const int* __restrict__ s
 }
 
 template <typename T>
-int launch_densify(const void* vals, const void* sel, void* out, int rows, int k,
-                   int dim, cudaStream_t stream) {
+int launch_densify(const void* vals, const void* sel, void* out, int rows, int k, int dim,
+                   cudaStream_t stream) {
   if (rows <= 0 || k < 1 || dim < 1) return (int)cudaErrorInvalidValue;
-  const int per_row = k * (int)(sizeof(float) + sizeof(int));
-  const int fit = kSmemBytes / per_row;
-  const int rpb = fit < kDensifyMaxRows ? fit : kDensifyMaxRows;
-  if (rpb < 1) return (int)cudaErrorInvalidValue;
-  const int threads = dim >= 256 ? 256 : (dim + 31) / 32 * 32;
-  const dim3 grid((rows + rpb - 1) / rpb);
-  densify_kernel<T><<<grid, threads, rpb * per_row, stream>>>(
-      static_cast<const T*>(vals), static_cast<const int*>(sel),
-      static_cast<T*>(out), rows, k, dim, rpb);
+  const int tile = dim < kTileCols ? dim : kTileCols;
+  const int stride = (tile + 3) / 4 * 4;
+  const size_t smem = (size_t)kDensifyWarps * stride * sizeof(float);
+  // a tile starts at a multiple of kTileCols, 16-byte aligned in both dtypes
+  const bool vec = (int64_t)dim * sizeof(T) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const unsigned blocks = (unsigned)(((int64_t)rows + kDensifyWarps - 1) / kDensifyWarps);
+  const T* v = static_cast<const T*>(vals);
+  const int* s = static_cast<const int*>(sel);
+  T* o = static_cast<T*>(out);
+  if (vec)
+    densify_kernel<T, true><<<blocks, kDensifyWarps * 32, smem, stream>>>(v, s, o, rows, k, dim,
+                                                                          tile, stride);
+  else
+    densify_kernel<T, false><<<blocks, kDensifyWarps * 32, smem, stream>>>(v, s, o, rows, k, dim,
+                                                                           tile, stride);
   return (int)cudaGetLastError();
 }
 

@@ -51,6 +51,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_fns = {}  # entry point name -> its ctypes function, bound once by library()
 
 
 def _sources():
@@ -118,7 +119,8 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), its entry points
+    bound in `_fns`."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -126,37 +128,43 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _fns[name] = fn
         _lib = lib
     return _lib
 
 
 def check(name: str, t, dtypes, ndim: int = 2) -> None:
     """Raise unless `t` is a contiguous `ndim`-D CUDA tensor of one of
-    `dtypes` on the current device (the kernels launch on its current
-    stream)."""
+    `dtypes` whose dims fit int32. `launch` checks that the tensor the
+    kernel runs with lies on the current device."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.device.index != torch.cuda.current_device():
-        raise ValueError(
-            f"{name}: tensor on {t.device}, current device is "
-            f"cuda:{torch.cuda.current_device()}"
-        )
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected a {ndim}-D tensor, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
-    if any(n >= 2**31 for n in t.shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} exceeds the int32 range")
+    for n in t.shape:
+        if n >= 2**31:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} exceeds the int32 range")
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point on the current stream; raise on a CUDA error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+def launch(name: str, entry: str, t, *args) -> None:
+    """Call the C entry point `entry` on the current stream of `t`'s device,
+    which must be the current device (else the wrapper `name` raises); raise
+    on a CUDA error. One device check a launch, and the stream as a raw
+    handle: building a `torch.cuda.Stream` costs more host time than a
+    small kernel's work."""
+    dev = t.get_device()
+    cur = torch._C._cuda_getDevice()
+    if dev != cur:
+        raise ValueError(f"{name}: tensor on cuda:{dev}, current device is cuda:{cur}")
+    if not _fns:
+        library()
+    err = _fns[entry](*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
 
 
 def l2_cache_bytes() -> int:

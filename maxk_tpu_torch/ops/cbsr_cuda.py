@@ -44,12 +44,14 @@ def sample_plain(z: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, torch.gather(z, 1, idx), torch.zeros((), dtype=z.dtype))
 
 
-def _check_sel(name: str, sel: torch.Tensor, rows: int, device) -> int:
+def _check_sel(name: str, sel: torch.Tensor, t: torch.Tensor) -> int:
+    """Check the selectors of the (rows, ·) tensor `t`; return their k."""
     _native.check(name, sel, (torch.int32,))
-    if sel.shape[0] != rows or sel.device != device:
+    rows = t.shape[0]
+    if sel.shape[0] != rows or sel.get_device() != t.get_device():
         raise ValueError(
             f"{name}: selector {tuple(sel.shape)} on {sel.device} does not "
-            f"match {rows} rows on {device}"
+            f"match {rows} rows on {t.device}"
         )
     return sel.shape[1]
 
@@ -58,15 +60,16 @@ def densify_cuda(vals: torch.Tensor, sel: torch.Tensor, dim: int) -> torch.Tenso
     """The CUDA densify kernel. Counts its launches in `densify_cuda.launches`."""
     _native.check("cbsr_densify", vals, KERNEL_DTYPES)
     v, k = vals.shape
-    if _check_sel("cbsr_densify", sel, v, vals.device) != k:
+    if _check_sel("cbsr_densify", sel, vals) != k:
         raise ValueError(f"cbsr_densify: values {tuple(vals.shape)} vs selector {tuple(sel.shape)}")
     if not 1 <= k <= 4096 or dim < 1:
         raise ValueError(f"cbsr_densify: k={k} must be in [1, 4096], dim={dim} >= 1")
-    out = torch.empty((v, dim), dtype=vals.dtype, device=vals.device)
+    out = vals.new_empty((v, dim))
     if v == 0:
         return out
     name = "cbsr_densify_f32" if vals.dtype == torch.float32 else "cbsr_densify_bf16"
-    _native.launch(name, vals.data_ptr(), sel.data_ptr(), out.data_ptr(), v, k, dim)
+    _native.launch("cbsr_densify", name, vals, vals.data_ptr(), sel.data_ptr(), out.data_ptr(), v, k,
+                   dim)
     densify_cuda.launches += 1
     return out
 
@@ -78,12 +81,12 @@ def sample_cuda(z: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """The CUDA sample kernel. Counts its launches in `sample_cuda.launches`."""
     _native.check("cbsr_sample", z, KERNEL_DTYPES)
     v, d = z.shape
-    k = _check_sel("cbsr_sample", sel, v, z.device)
-    out = torch.empty((v, k), dtype=z.dtype, device=z.device)
+    k = _check_sel("cbsr_sample", sel, z)
+    out = z.new_empty((v, k))
     if v == 0 or k == 0:
         return out
     name = "cbsr_sample_f32" if z.dtype == torch.float32 else "cbsr_sample_bf16"
-    _native.launch(name, z.data_ptr(), sel.data_ptr(), out.data_ptr(), v, k, d)
+    _native.launch("cbsr_sample", name, z, z.data_ptr(), sel.data_ptr(), out.data_ptr(), v, k, d)
     sample_cuda.launches += 1
     return out
 

@@ -49,7 +49,7 @@ take_along_rows_plain = sample_plain
 def _check_rows(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
     _native.check(name, table, KERNEL_DTYPES)
     _native.check(name, idx, (torch.int32,), ndim=1)
-    if idx.device != table.device:
+    if idx.get_device() != table.get_device():
         raise ValueError(f"{name}: indices on {idx.device}, table on {table.device}")
     if table.shape[0] < 1 or table.shape[1] < 1:
         raise ValueError(f"{name}: empty table {tuple(table.shape)}")
@@ -68,11 +68,12 @@ def slab_gather_cuda(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             "which holds the slab"
         )
     n = idx.shape[0]
-    out = torch.empty((n, d), dtype=slab.dtype, device=slab.device)
+    out = slab.new_empty((n, d))
     if n == 0:
         return out
     name = "slab_gather_f32" if slab.dtype == torch.float32 else "slab_gather_bf16"
-    _native.launch(name, slab.data_ptr(), idx.data_ptr(), out.data_ptr(), s, d, n)
+    _native.launch("slab_gather", name, slab, slab.data_ptr(), idx.data_ptr(), out.data_ptr(), s, d,
+                   n)
     slab_gather_cuda.launches += 1
     return out
 
@@ -95,10 +96,11 @@ def dma_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if _DMA_RING * row_bytes > _MAX_SMEM_BYTES:
         raise ValueError(f"dma_gather: rows of {row_bytes} B do not fit a ring of {_DMA_RING}")
     n = idx.shape[0]
-    out = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    out = x.new_empty((n, d))
     if n == 0:
         return out
-    _native.launch("dma_gather", x.data_ptr(), idx.data_ptr(), out.data_ptr(), v, row_bytes, n)
+    _native.launch("dma_gather", "dma_gather", x, x.data_ptr(), idx.data_ptr(), out.data_ptr(), v,
+                   row_bytes, n)
     dma_gather_cuda.launches += 1
     return out
 
@@ -112,17 +114,18 @@ def take_along_rows_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _native.check("take_along_rows", x, KERNEL_DTYPES)
     _native.check("take_along_rows", idx, (torch.int32,))
     r, d = x.shape
-    if idx.shape[0] != r or idx.device != x.device:
+    if idx.shape[0] != r or idx.get_device() != x.get_device():
         raise ValueError(
             f"take_along_rows: indices {tuple(idx.shape)} on {idx.device} do not match "
             f"{r} rows on {x.device}"
         )
     k = idx.shape[1]
-    out = torch.empty((r, k), dtype=x.dtype, device=x.device)
+    out = x.new_empty((r, k))
     if r == 0 or k == 0:
         return out
     name = "take_rows_f32" if x.dtype == torch.float32 else "take_rows_bf16"
-    _native.launch(name, x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, k, d)
+    _native.launch("take_along_rows", name, x, x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, k,
+                   d)
     take_along_rows_cuda.launches += 1
     return out
 

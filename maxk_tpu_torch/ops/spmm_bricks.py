@@ -150,12 +150,12 @@ def spmm_bricks_cuda(sched: BrickSchedule, x: torch.Tensor) -> torch.Tensor:
             f"spmm_bricks: wb={sched.wb}, win={sched.win} in {x.dtype} need {smem} B of "
             f"shared memory, more than {limit}"
         )
-    y = torch.empty((sched.num_nodes, d), dtype=x.dtype, device=x.device)
+    y = x.new_empty((sched.num_nodes, d))
     if sched.num_nodes == 0 or d == 0:
         return y
     name = "spmm_bricks_f32" if x.dtype == torch.float32 else "spmm_bricks_bf16"
     _native.launch(
-        name, sched.chunk_panel.data_ptr(), sched.chunk_sgroup.data_ptr(),
+        "spmm_bricks", name, x, sched.chunk_panel.data_ptr(), sched.chunk_sgroup.data_ptr(),
         sched.meta.data_ptr(), sched.idx.data_ptr(), sched.val.data_ptr(), x.data_ptr(),
         y.data_ptr(), sched.num_chunks, sched.ch, sched.slots, sched.num_sgroups, sched.sg,
         sched.panel, sched.wb, sched.win, sched.num_nodes, v, d,

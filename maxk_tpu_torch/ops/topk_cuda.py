@@ -72,11 +72,11 @@ def maxk_mask_cuda(x: torch.Tensor, k: int):
     if not 1 <= k <= d:
         raise ValueError(f"maxk_mask: k={k} must be in [1, {d}]")
     y = torch.empty_like(x)
-    take = torch.empty((v, d), dtype=torch.uint8, device=x.device)
+    take = x.new_empty((v, d), dtype=torch.uint8)
     if v == 0:
         return y, take
     name = "maxk_mask_f32" if x.dtype == torch.float32 else "maxk_mask_bf16"
-    _native.launch(name, x.data_ptr(), y.data_ptr(), take.data_ptr(), v, d, k)
+    _native.launch("maxk_mask", name, x, x.data_ptr(), y.data_ptr(), take.data_ptr(), v, d, k)
     maxk_mask_cuda.launches += 1
     return y, take
 
@@ -136,12 +136,12 @@ def topk_cbsr_cuda(x: torch.Tensor, k: int):
         raise ValueError(f"topk_cbsr: D={d} must be a multiple of 32 in [32, 1024]")
     if not 1 <= k <= d:
         raise ValueError(f"topk_cbsr: k={k} must be in [1, {d}]")
-    vals = torch.empty((v, k), dtype=torch.float32, device=x.device)
-    sel = torch.empty((v, k), dtype=torch.int32, device=x.device)
+    vals = x.new_empty((v, k), dtype=torch.float32)
+    sel = x.new_empty((v, k), dtype=torch.int32)
     if v == 0:
         return vals, sel
     name = "topk_cbsr_f32" if x.dtype == torch.float32 else "topk_cbsr_bf16"
-    _native.launch(name, x.data_ptr(), vals.data_ptr(), sel.data_ptr(), v, d, k)
+    _native.launch("topk_cbsr", name, x, x.data_ptr(), vals.data_ptr(), sel.data_ptr(), v, d, k)
     topk_cbsr_cuda.launches += 1
     return vals, sel
 

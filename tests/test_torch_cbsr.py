@@ -61,6 +61,22 @@ def test_densify_matches_pallas(dtype, duplicates, out_of_range):
         assert np.all(np.abs(got - ref) <= _bf16_ulp(ref))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_densify_lone_negative_zero_matches_pallas(dtype):
+    """A column whose only value is -0.0 is +0.0 in the Pallas kernel
+    (zeros plus the masked value) and in densify_plain, bit for bit."""
+    sel = _selectors(10, False, False)
+    vals = np.random.default_rng(11).standard_normal((V, K)).astype(np.float32)
+    vals[:, 3] = -0.0
+    tvals = torch.from_numpy(vals).to(getattr(torch, dtype))
+    ref = np.asarray(cp._densify_raw(jnp.asarray(vals, getattr(jnp, dtype)), jnp.asarray(sel), D, True))
+    got = densify_plain(tvals, torch.from_numpy(sel), D)
+    bits = np.uint16 if dtype == "bfloat16" else np.uint32
+    got_bits = got.view(torch.int16 if dtype == "bfloat16" else torch.int32).numpy().view(bits)
+    np.testing.assert_array_equal(got_bits, ref.view(bits))
+    assert not got_bits[np.arange(V), sel[:, 3]].any()
+
+
 @pytest.mark.parametrize("out_of_range", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sample_matches_pallas(dtype, out_of_range):

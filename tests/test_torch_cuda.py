@@ -134,6 +134,103 @@ def test_densify_and_sample_kernels(cuda, v, k, d, dtype):
     assert torch.equal(_bits(cbsr_cuda.sample_cuda(z, sel)), _bits(cbsr_cuda.sample_plain(z, sel)))
 
 
+def _sequential_densify(vals, sel, d):
+    """out[r, c] = +0.0 + vals[r, l1] + vals[r, l2] + ... over the slots l of
+    row r whose selector is c, added one at a time in l order in float32."""
+    import numpy as np
+
+    v, k = vals.shape
+    out = np.zeros((v, d), np.float32)
+    rows = np.arange(v)
+    for l in range(k):
+        ok = (sel[:, l] >= 0) & (sel[:, l] < d)
+        out[rows[ok], sel[ok, l]] += vals[ok, l]  # one slot a row: no index repeats
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(32, 256), (64, 256), (64, 3000), (64, 50)])
+def test_densify_kernel_bit_equal_to_sequential_sum(cuda, k, d, dtype):
+    """K2 against a sequential l-order f32 sum rounded once: selectors that
+    repeat inside a 32-slot chunk and across chunks, and selectors outside
+    [0, d). D = 3000 is walked in two column tiles; D = 50 in bf16 is a row
+    of 100 bytes, written one element at a time."""
+    import numpy as np
+
+    rng = np.random.default_rng(k + d)
+    v = 1000
+    sel = rng.integers(-2, d + 2, (v, k)).astype(np.int32)
+    sel[:, 5] = sel[:, 7] = sel[:, 3]  # three slots of one chunk
+    sel[:, k - 1] = sel[:, 3]  # and one of the last chunk
+    sel[:, k - 2] = sel[:, 1]
+    vals = torch.from_numpy(rng.standard_normal((v, k)).astype(np.float32)).to(dtype)
+    expect = torch.from_numpy(_sequential_densify(vals.float().numpy(), sel, d)).to(dtype)
+    out = cbsr_cuda.densify_cuda(vals.to(cuda), torch.from_numpy(sel).to(cuda), d)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out.cpu()), _bits(expect))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_densify_kernel_lone_negative_zero_is_positive(cuda, dtype):
+    """A column whose only value is -0.0 gets +0.0 (the zeroed row plus the
+    value), as the Pallas kernel and densify_plain give it."""
+    vals = torch.randn((64, 8), generator=torch.Generator().manual_seed(3))
+    vals[:, 2] = -0.0
+    sel = torch.arange(8, dtype=torch.int32).repeat(64, 1) * 7
+    out = cbsr_cuda.densify_cuda(vals.to(dtype).to(cuda), sel.to(cuda), 64)
+    ref = cbsr_cuda.densify_plain(vals.to(dtype), sel, 64)
+    torch.cuda.synchronize()
+    assert not _bits(out[:, 14]).any()
+    assert torch.equal(_bits(out.cpu()), _bits(ref))
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_the_current_stream(cuda):
+    """Each wrapper under `torch.cuda.stream(s)`: its input is written on s
+    after a sleep, so a kernel that launched on any other stream would read
+    the input before it is written."""
+    from maxk_tpu_torch.ops import gather_cuda as gc
+    from maxk_tpu_torch.ops import spmm_bricks as sb
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((300, 64), generator=gen, device=cuda)
+    sel = torch.randint(-1, 65, (300, 8), generator=gen, device=cuda, dtype=torch.int32)
+    idx = torch.randint(0, 300, (500,), generator=gen, device=cuda, dtype=torch.int32)
+    sched = BRICK_CASES["full_fields"][0]().to(cuda)
+    xb = torch.randn((sched.num_cols, 80), generator=gen, device=cuda)
+    cases = {  # name: (kernel, plain version, arguments)
+        "maxk_mask": (topk_cuda.maxk_mask_cuda, topk_cuda.maxk_mask_plain, (x, 8)),
+        "topk_cbsr": (topk_cuda.topk_cbsr_cuda, topk_cuda.topk_cbsr_plain, (x, 8)),
+        "densify": (cbsr_cuda.densify_cuda, cbsr_cuda.densify_plain, (x[:, :8].contiguous(), sel, 64)),
+        "sample": (cbsr_cuda.sample_cuda, cbsr_cuda.sample_plain, (x, sel)),
+        "spmm_bricks": (sb.spmm_bricks_cuda, sb.spmm_bricks_plain, (sched, xb)),
+        "slab_gather": (gc.slab_gather_cuda, gc.gather_rows_plain, (x, idx)),
+        "dma_gather": (gc.dma_gather_cuda, gc.gather_rows_plain, (x, idx)),
+        "take_along_rows": (gc.take_along_rows_cuda, gc.take_along_rows_plain, (x, sel)),
+    }
+    s = torch.cuda.Stream()
+    for name, (kernel, plain, args) in cases.items():
+        late = [torch.zeros_like(a) if isinstance(a, torch.Tensor) else a for a in args]
+        torch.cuda.synchronize()
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+            for dst, src in zip(late, args):
+                if isinstance(src, torch.Tensor):
+                    dst.copy_(src)
+            got = kernel(*late)
+        s.synchronize()
+        ref = plain(*args)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        for a, b in zip(got, ref):
+            if name == "spmm_bricks":
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+            else:
+                same = torch.equal(_bits(a), _bits(b)) if a.is_floating_point() else torch.equal(a, b)
+                assert same, name
+
+
 @pytest.mark.cuda
 def test_each_launch_counts_once(cuda):
     x = torch.randn(64, 64, device=cuda)

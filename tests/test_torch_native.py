@@ -3,6 +3,7 @@ nvcc: the library is keyed by the sources' hash, a build is reused, and a
 failed build raises with the compiler's output. The real nvcc runs only
 on the card's machine (chip_smoke.py)."""
 
+import re
 import stat
 
 import pytest
@@ -64,6 +65,19 @@ def test_failed_build_raises_with_compiler_output(csrc, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match=r"(?s)exit code 3.*a.cu\(3\): error: bad kernel"):
         _native.build()
     assert not any((csrc / "build").iterdir())
+
+
+def test_every_signature_is_an_entry_point_of_the_sources():
+    """Each name that `SIGNATURES` binds is an `extern "C"` function of
+    `csrc/*.cu` taking as many parameters as its ctypes signature."""
+    text = "\n".join(p.read_text() for p in sorted(_native.CSRC.glob("*.cu")))
+    params = {
+        name: len([p for p in args.split(",") if p.strip()])
+        for name, args in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', text)
+    }
+    assert {name: params.get(name) for name in _native.SIGNATURES} == {
+        name: len(argtypes) for name, argtypes in _native.SIGNATURES.items()
+    }
 
 
 def test_flags_target_hopper():
