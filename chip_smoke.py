@@ -45,7 +45,7 @@ DIM, K, LAYERS, EPOCHS = 256, 32, 4, 10
 SHARDED_EPOCHS = 5
 BRICK_V, BRICK_E = 32768, 1_000_000  # probe_bricks' default graph
 TIMED = 20  # launches per kernel timing
-ROUNDS = 5  # rounds of the launch-path timings
+ROUNDS = 5  # rounds of the launch-path and K7 timings
 
 
 class SmokeFailure(Exception):
@@ -98,7 +98,11 @@ def phase_build():
 
 def _mask_input(v: int, dtype, gen):
     """(v, DIM) normal values with tie rows: small integers, one -0.0
-    among +0.0s, a constant row and an all-negative row."""
+    among +0.0s, a constant row and an all-negative row; then f32 values
+    sharing their top 16 bits but differing below (a whole row, positive
+    and negative, exactly 32 and 33 of a row), and a row whose shared top
+    halves straddle the k-th place with ties below them too (in bf16 they
+    round to plain ties)."""
     import torch
 
     x = torch.randn((v, DIM), generator=gen, device="cuda")
@@ -107,6 +111,15 @@ def _mask_input(v: int, dtype, gen):
     x[64, 0] = -0.0
     x[65] = 1.0
     x[66] = -x[66].abs() - 1.0
+    j = torch.arange(DIM, device="cuda", dtype=torch.float64)
+    x[67] = (1.0 + j * 2.0**-20).float()
+    x[68] = (-1.0 - j * 2.0**-20).float()
+    for r, m in ((69, 32), (70, 33)):
+        x[r] = 0.0
+        x[r, :m] = (1.0 + j[:m] * 2.0**-20).float()
+    x[71] = 0.1 * x[71]
+    x[71, :10] = 5.0
+    x[71, 10:40] = (3.0 + (j[:30] % 7) * 2.0**-20).float()
     return x.to(dtype)
 
 
@@ -132,7 +145,7 @@ def phase_kernels(v: int):
         y0, take0 = topk_cuda.maxk_mask_plain(x, K)
         torch.cuda.synchronize()
         err = (y.float() - y0.float()).abs().max().item()
-        exact = torch.equal(y, y0) and torch.equal(take, take0)
+        exact = torch.equal(_bits(y), _bits(y0)) and torch.equal(take, take0)
         k_each = bool((take.sum(1) == K).all())
         ms = cuda_ms(lambda: topk_cuda.maxk_mask_cuda(x, K), TIMED)
         plain = cuda_ms(lambda: topk_cuda.maxk_mask_plain(x, K), TIMED)
@@ -288,19 +301,30 @@ def phase_bench_kernels(bg, sched):
         res[("spmm_bricks", tag)] = dict(max_abs_err=err["max_abs"])
         del x, y, ref, e
 
-    def gather_check(name, kernel, plain, library_fn, args, nbytes, key, iters=TIMED, **shape):
+    def gather_check(name, kernel, plain, library_fn, args, nbytes, key, iters=TIMED,
+                     rounds=1, **shape):
+        """`rounds` > 1: kernel and library call are each the median of
+        that many runs of `iters` launches, taken in turns (kernel, library,
+        library, kernel, ...), with the range beside."""
         out = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
         exact = torch.equal(_bits(out), _bits(ref))
         err = (out.float() - ref.float()).abs().max().item()
         del out, ref
-        ms = cuda_ms(lambda: kernel(*args), iters)
+        runs = {"ms": [], "library_ms": []}
+        fns = {"ms": lambda: kernel(*args), "library_ms": lambda: library_fn(*args)}
+        for r in range(rounds):
+            for arm in (("ms", "library_ms") if r % 2 == 0 else ("library_ms", "ms")):
+                runs[arm].append(cuda_ms(fns[arm], iters))
+        ms, lib = statistics.median(runs["ms"]), statistics.median(runs["library_ms"])
         plain_ms = cuda_ms(lambda: plain(*args), iters)
-        lib = cuda_ms(lambda: library_fn(*args), iters)
+        spread = {} if rounds == 1 else {
+            "rounds": rounds, "ms_range": [min(runs["ms"]), max(runs["ms"])],
+            "library_ms_range": [min(runs["library_ms"]), max(runs["library_ms"])]}
         b = bound(nbytes)
         emit("kernel", name=name, exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             library_ms=lib, bound_share=b["bound_ms"] / ms, iters=iters, **shape, **b)
+             library_ms=lib, bound_share=b["bound_ms"] / ms, iters=iters, **spread, **shape, **b)
         require(exact, f"{name} {shape}: differs from the plain version")
         res[(name, key)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib, **b)
 
@@ -318,14 +342,19 @@ def phase_bench_kernels(bg, sched):
                          dtype=tag, slab=[s, DIM], n=n, library="torch.index_select")
     del slab, idx
 
-    # K7: 2^18 random rows of a (2^18, 256) f32 table
+    # K7: 2^18 random rows of a (2^18, 256) table, rows of 1 KB (f32) and
+    # 512 B (bf16); K7 and index_select are close in f32, so both are
+    # medians of ROUNDS runs taken in turns
     v7 = n7 = 1 << 18
-    x = torch.randn((v7, DIM), generator=gen, device="cuda")
-    idx = torch.randint(0, v7, (n7,), generator=gen, device="cuda", dtype=torch.int32)
-    gather_check("dma_gather", gather_cuda.dma_gather_cuda, gather_cuda.gather_rows_plain,
-                 lambda t, i: torch.index_select(t, 0, i), (x, idx),
-                 n7 * 4 + (_unique(idx) + n7) * DIM * 4, "float32",
-                 dtype="float32", table=[v7, DIM], n=n7, library="torch.index_select")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        isz = torch.finfo(dtype).bits // 8
+        x = torch.randn((v7, DIM), generator=gen, device="cuda").to(dtype)
+        idx = torch.randint(0, v7, (n7,), generator=gen, device="cuda", dtype=torch.int32)
+        gather_check("dma_gather", gather_cuda.dma_gather_cuda, gather_cuda.gather_rows_plain,
+                     lambda t, i: torch.index_select(t, 0, i), (x, idx),
+                     n7 * 4 + (_unique(idx) + n7) * DIM * isz, tag, rounds=ROUNDS,
+                     dtype=tag, table=[v7, DIM], n=n7, library="torch.index_select")
     del x, idx
 
     # K8: probe_topk's (262144, 256) at 32 random in-row indices, and its

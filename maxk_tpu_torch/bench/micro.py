@@ -4,7 +4,7 @@ Port of `maxk_tpu/bench/micro.py`:
 
   A. plain row gather from device memory (`index_select`)
   B. K6: gather from a slab held in L2 (`csrc/gather.cu`)
-  C. K7: row gather by `cp.async`, 16 rows in flight (`csrc/gather.cu`)
+  C. K7: row gather from device memory, a thread per 16-byte chunk (`csrc/gather.cu`)
   D. gather as a one-hot matrix product (bf16)
   E. `torch.topk` against a full sort (the MaxK selection's role)
   F. segment-sum scatter rate (`index_add_`, the backward's role)
@@ -114,7 +114,7 @@ def bench_dma_gather(v=262144, d=256, n=1 << 18, dtype=torch.float32, device="cu
     x = rand((v, d), dtype, device=device)
     idx = randint((n,), v, device=device)
     t = timeit(dma_gather, x, idx)
-    print(f"C. K7 cp.async row gather (V={v}, D={d}, N={n}, {_name(dtype)}): "
+    print(f"C. K7 row gather (V={v}, D={d}, N={n}, {_name(dtype)}): "
           f"{t*1e3:.4f} ms  {n/t/1e9:.3f} Grow/s  {n*d*x.element_size()/t/1e9:.1f} GB/s",
           flush=True)
     return t

@@ -4,7 +4,7 @@
 // slab gather replaces the Pallas `kernel` of `bench_pallas_vmem_gather`
 // (maxk_tpu/bench/micro.py:142):       out[e] = slab[idx[e]], slab on chip
 // dma gather replaces the Pallas `kernel` of `bench_pallas_dma_gather`
-// (micro.py:204):                      out[e] = x[idx[e]], 16 copies in flight
+// (micro.py:204):                      out[e] = x[idx[e]], from device memory
 // take-along-rows replaces the Pallas `gk` (maxk_tpu/bench/probe_topk.py:96):
 //                                      out[r, j] = x[r, idx[r, j]]
 // An index outside the table (or the row) yields a zero row (element) and is
@@ -27,12 +27,18 @@
 // window: no device state outlives the launch. Rows that are not 16-byte
 // multiples move element by element. The slab must fit L2 (the launch reads
 // its size from the device and refuses a larger slab).
-// dma design (the structure of micro.py:204-225): a block takes 512
-// indices and a shared ring of 2·16 rows; every thread owns the same
-// 16-byte chunks of every row, keeps 16 rows of `cp.async` copies in
-// flight (one commit group per row), and for each row e waits for its
-// group, starts row e+16 and stores its chunks of row e. A thread reads
-// back only what it copied itself, so no barrier is needed.
+// dma design: a thread per 16-byte chunk of the output, kDmaUnroll chunks
+// a thread spaced by the block (all their loads, then their stores), a
+// grid over every chunk: out chunk g is x[idx[g / nch]] chunk g % nch, so
+// a warp moves 512 contiguous bytes of a row per instruction and the card
+// keeps many small independent reads in flight. Stores stream
+// (`st.global.cs`). The TPU kernel's `make_async_copy` of a whole row
+// would be a TMA bulk copy here; a ring of TMA row copies (loads and
+// stores by `cp.async.bulk` through shared memory), the `cp.async` ring it
+// replaces, a warp per row with rows in flight on a persistent grid, and a
+// sweep of the table in row ranges so that repeated rows hit L2 were all
+// measured slower than this at micro's shape (bench/ablate_mask_gather.py,
+// PERF.md).
 // take-along-rows design: one thread per (r, j), the selector-guarded gather
 // of the CBSR sample (`maxk::gather_in_row`).
 #include <atomic>
@@ -44,10 +50,8 @@ namespace {
 
 constexpr int kSlabThreads = 256;
 constexpr int kSlabUnroll = 4;  // indices in flight per lane group
-constexpr int kDmaSlots = 16;   // rows of copies in flight
-constexpr int kDmaRing = 2 * kDmaSlots;
-constexpr int kDmaRowsPerBlock = 512;
-constexpr int kMaxSmemBytes = 227 * 1024;
+constexpr int kDmaThreads = 256;
+constexpr int kDmaUnroll = 4;  // chunks a thread
 
 __device__ __forceinline__ uint64_t l2_evict_last() {
   uint64_t policy;
@@ -116,47 +120,26 @@ __global__ void __launch_bounds__(kSlabThreads)
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // src_bytes = 0 reads nothing and fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x and out as rows of `nch` 16-byte chunks
-__global__ void dma_gather_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
-                                  uint4* __restrict__ out, int v, int nch, int64_t n) {
-  extern __shared__ uint4 ring[];
-  const int64_t e0 = (int64_t)blockIdx.x * kDmaRowsPerBlock;
-  const int rows = n - e0 < kDmaRowsPerBlock ? (int)(n - e0) : kDmaRowsPerBlock;
-  // one commit group per row, empty past the block's last row, so that
-  // group e is complete once at most kDmaSlots - 1 groups are pending
-  auto start = [&](int e) {
-    if (e < rows) {
-      const int r = idx[e0 + e];
-      const bool ok = r >= 0 && r < v;
-      const uint4* src = x + (ok ? (int64_t)r * nch : 0);
-      uint4* dst = ring + (e % kDmaRing) * nch;
-      for (int j = threadIdx.x; j < nch; j += blockDim.x) cp_async16(dst + j, src + j, ok ? 16 : 0);
+// x and out as rows of `nch` 16-byte chunks, `total` chunks of output
+__global__ void __launch_bounds__(kDmaThreads)
+    dma_gather_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
+                      uint4* __restrict__ out, int v, int nch, int64_t total) {
+  const int64_t g0 = (int64_t)blockIdx.x * kDmaThreads * kDmaUnroll + threadIdx.x;
+  uint4 q[kDmaUnroll];
+#pragma unroll
+  for (int u = 0; u < kDmaUnroll; ++u) {
+    const int64_t g = g0 + u * kDmaThreads;
+    q[u] = make_uint4(0, 0, 0, 0);
+    if (g < total) {
+      const int64_t e = g / nch;
+      const int r = idx[e];
+      if (r >= 0 && r < v) q[u] = __ldg(x + (int64_t)r * nch + (g - e * nch));
     }
-    cp_async_commit();
-  };
-  for (int e = 0; e < kDmaSlots; ++e) start(e);
-  for (int e = 0; e < rows; ++e) {
-    cp_async_wait<kDmaSlots - 1>();
-    start(e + kDmaSlots);
-    const uint4* buf = ring + (e % kDmaRing) * nch;
-    uint4* o = out + (e0 + e) * nch;
-    for (int j = threadIdx.x; j < nch; j += blockDim.x) o[j] = buf[j];
+  }
+#pragma unroll
+  for (int u = 0; u < kDmaUnroll; ++u) {
+    const int64_t g = g0 + u * kDmaThreads;
+    if (g < total) store_stream(out + g, q[u]);
   }
 }
 
@@ -252,16 +235,13 @@ extern "C" int dma_gather(const void* x, const void* idx, void* out, int v, int 
                           int n, void* stream) {
   if (v < 1 || n < 1 || row_bytes < 16 || row_bytes % 16) return (int)cudaErrorInvalidValue;
   const int nch = row_bytes / 16;
-  const int smem = kDmaRing * row_bytes;
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(dma_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = nch >= 128 ? 128 : (nch + 31) / 32 * 32;
-  const int64_t blocks = ((int64_t)n + kDmaRowsPerBlock - 1) / kDmaRowsPerBlock;
-  dma_gather_kernel<<<(unsigned)blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<const int*>(idx), static_cast<uint4*>(out), v,
-      nch, n);
+  const int64_t total = (int64_t)n * nch;
+  const int64_t per_block = (int64_t)kDmaThreads * kDmaUnroll;
+  const int64_t blocks = (total + per_block - 1) / per_block;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dma_gather_kernel<<<(unsigned)blocks, kDmaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<const int*>(idx), static_cast<uint4*>(out), v, nch,
+      total);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,8 @@ the same function in plain PyTorch beside it:
         slab held in L2 (the TPU kernel's slab in VMEM), so the slab must
         fit the card's L2;
   K7 `kernel` of `bench_pallas_dma_gather` (`micro.py:204`)
-      → `dma_gather_cuda`: out[e] = x[idx[e]] from device memory, 16 rows
-        of copies in flight;
+      → `dma_gather_cuda`: out[e] = x[idx[e]] from device memory, a thread
+        per 16-byte chunk of the output;
   K8 `gk` (`maxk_tpu/bench/probe_topk.py:96`)
       → `take_along_rows_cuda`: out[r, j] = x[r, idx[r, j]].
 
@@ -29,9 +29,6 @@ from maxk_tpu_torch.ops import _native
 from maxk_tpu_torch.ops.cbsr_cuda import sample_plain
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# the DMA ring's shared-memory budget and rows (csrc/gather.cu)
-_MAX_SMEM_BYTES = 227 * 1024
-_DMA_RING = 32
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -82,9 +79,8 @@ slab_gather_cuda.launches = 0
 
 
 def dma_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """K7. Rows move as 16-byte copies: D · itemsize must be a multiple of
-    16, and 32 rows must fit in shared memory. Counts its launches in
-    `dma_gather_cuda.launches`."""
+    """K7. Rows move as 16-byte chunks: D · itemsize must be a multiple of
+    16. Counts its launches in `dma_gather_cuda.launches`."""
     _check_rows("dma_gather", x, idx)
     v, d = x.shape
     row_bytes = d * x.element_size()
@@ -93,8 +89,6 @@ def dma_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             f"dma_gather: rows of {row_bytes} B at address {x.data_ptr():#x} must be "
             "16-byte multiples, 16-byte aligned"
         )
-    if _DMA_RING * row_bytes > _MAX_SMEM_BYTES:
-        raise ValueError(f"dma_gather: rows of {row_bytes} B do not fit a ring of {_DMA_RING}")
     n = idx.shape[0]
     out = x.new_empty((n, d))
     if n == 0:

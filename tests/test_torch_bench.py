@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from maxk_tpu_torch.bench import ablate_bricks, kernel_bench, micro, probe_bricks, probe_topk
+from maxk_tpu_torch.bench import (ablate_bricks, ablate_mask_gather, kernel_bench, micro,
+                                  probe_bricks, probe_topk)
 from maxk_tpu_torch.ops import gather_cuda
 from maxk_tpu_torch.ops.dispatch import resolve_mode
 
@@ -29,7 +30,7 @@ TINY = ["--graphs", "flickr", "--k", "8", "--scale", "0.002", "--validate"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s,d,n", [(64, 32, 1000), (300, 48, 77), (1, 16, 5)])
+@pytest.mark.parametrize("s,d,n", [(64, 32, 1000), (300, 48, 77), (1, 16, 5), (512, 256, 300)])
 def test_row_gather_plain_is_jnp_take(s, d, n, dtype):
     rng = np.random.default_rng(s + n)
     table = rng.standard_normal((s, d)).astype(np.float32)
@@ -166,7 +167,7 @@ def test_pallas_mode_refuses_with_the_reference_reason():
 
 
 @pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks",
-                                   "ablate_bricks"])
+                                   "ablate_bricks", "ablate_mask_gather"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -174,6 +175,6 @@ def test_entry_points_default_to_the_card(entry):
 
     main = {"bench": bench.main, "kernel_bench": kernel_bench.main, "micro": micro.main,
             "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main,
-            "ablate_bricks": ablate_bricks.main}[entry]
+            "ablate_bricks": ablate_bricks.main, "ablate_mask_gather": ablate_mask_gather.main}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])

@@ -33,7 +33,10 @@ def cuda():
 
 def _rows(v, d, dtype, device, seed=0):
     """Normal rows plus tie rows, signed zeros, a constant row and an
-    all-negative row."""
+    all-negative row; then rows of f32 keys that share their top 16 bits
+    but differ below (all of the row, exactly 32, 33 where D allows; in
+    bf16 they round to plain ties), and a row whose shared top halves
+    straddle the k-th place with ties below them too."""
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn((v, d), generator=gen)
     x[:8] = torch.randint(-2, 3, (8, d), generator=gen).float()
@@ -41,6 +44,15 @@ def _rows(v, d, dtype, device, seed=0):
     x[8, ::3] = -0.0
     x[9] = 1.5
     x[10] = -x[10].abs() - 1.0
+    j = torch.arange(d, dtype=torch.float64)
+    x[11] = (1.0 + j * 2.0**-20).float()
+    x[12] = (-1.0 - j * 2.0**-20).float()
+    for r, m in ((13, 32), (14, min(33, d))):
+        x[r] = 0.0
+        x[r, :m] = (1.0 + j[:m] * 2.0**-20).float()
+    x[15] = 0.1 * x[15]
+    x[15, :10] = 5.0
+    x[15, 10:40] = (3.0 + (j[: min(30, d - 10)] % 7) * 2.0**-20).float()
     return x.to(dtype).to(device)
 
 
@@ -50,14 +62,33 @@ def _bits(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("v,d,k", [(100, 32, 1), (777, 96, 7), (4097, 256, 32), (300, 1024, 100)])
+@pytest.mark.parametrize("v,d,k", [(100, 32, 1), (777, 96, 7), (4097, 256, 32), (300, 1024, 100),
+                                   (128, 1024, 33), (64, 96, 40), (300, 128, 40), (40, 1024, 1024)])
 def test_maxk_mask_kernel_bit_equal(cuda, v, d, k, dtype):
+    """D = 96 moves element by element (a lane's 3 columns are no 16-byte
+    vector), and so does bf16 at D = 128; the rest as vectors."""
     x = _rows(v, d, dtype, cuda)
     y, take = topk_cuda.maxk_mask_cuda(x, k)
     y0, take0 = topk_cuda.maxk_mask_plain(x, k)
     torch.cuda.synchronize()
     assert torch.equal(_bits(y), _bits(y0)) and torch.equal(take, take0)
     assert bool((take.sum(1) == k).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxk_mask_kernel_unaligned_rows(cuda, dtype):
+    """x one element past a 16-byte boundary: the kernel moves elements
+    one by one, and still agrees bit for bit."""
+    v, d, k = 300, 256, 32
+    flat = torch.empty(v * d + 1, dtype=dtype, device=cuda)
+    x = flat[1:].view(v, d)
+    x.copy_(_rows(v, d, dtype, cuda))
+    assert x.data_ptr() % 16
+    y, take = topk_cuda.maxk_mask_cuda(x, k)
+    y0, take0 = topk_cuda.maxk_mask_plain(x, k)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(y0)) and torch.equal(take, take0)
 
 
 @pytest.mark.cuda
@@ -465,14 +496,47 @@ def test_slab_gather_kernel_exact(cuda, s, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("v,d,dtype", [(1000, 256, torch.float32), (1000, 64, torch.bfloat16),
-                                       (50, 4, torch.float32), (3000, 1024, torch.float32)])
+                                       (50, 4, torch.float32), (3000, 1024, torch.float32),
+                                       (700, 256, torch.bfloat16), (300, 8, torch.bfloat16)])
 def test_dma_gather_kernel_exact(cuda, v, d, dtype):
+    """Rows of 16 B (f32 D = 4, bf16 D = 8) to 4 KB, 512 B at micro's bf16
+    width."""
     from maxk_tpu_torch.ops.gather_cuda import dma_gather_cuda, gather_rows_plain
 
     gen = torch.Generator(device=cuda).manual_seed(v + d)
     x = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
-    # 1000 indices: a ragged last block of 488; some outside the table
+    # 1000 indices, the last block's chunks ragged; some outside the table
     idx = torch.randint(-2, v + 2, (1000,), generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(_bits(dma_gather_cuda(x, idx)), _bits(gather_rows_plain(x, idx)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4099, 1 << 18])
+def test_dma_gather_kernel_counts_of_indices(cuda, n):
+    """From one index (a part of one block) to micro's 2^18, every tenth
+    outside the table."""
+    from maxk_tpu_torch.ops.gather_cuda import dma_gather_cuda, gather_rows_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((5000, 256), generator=gen, device=cuda)
+    idx = torch.randint(0, 5000, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    idx[::10] = -1 - idx[::10]
+    assert torch.equal(_bits(dma_gather_cuda(x, idx)), _bits(gather_rows_plain(x, idx)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,dtype", [(40, 16384, torch.float32), (3, 32768, torch.bfloat16),
+                                       (70_000, 256, torch.float32)])
+def test_dma_gather_kernel_wide_rows_and_large_tables(cuda, v, d, dtype):
+    """Rows of 64 KB (4,096 chunks, a block's worth of chunks inside one
+    row), and a 68 MB table, larger than L2; every tenth index outside
+    it."""
+    from maxk_tpu_torch.ops.gather_cuda import dma_gather_cuda, gather_rows_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(v)
+    x = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(0, v, (5001,), generator=gen, device=cuda, dtype=torch.int32)
+    idx[::10] = -1 - idx[::10]
     assert torch.equal(_bits(dma_gather_cuda(x, idx)), _bits(gather_rows_plain(x, idx)))
 
 

@@ -32,15 +32,45 @@ def _rows(d: int, seed: int) -> np.ndarray:
     return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
 
 
+def _hi16_tie_rows(d: int, seed: int, dtype: str) -> np.ndarray:
+    """Rows of f32 values that share their top 16 bits but differ below:
+    all of a row, exactly 32 and 33, and shared top halves straddling the
+    k-th place with ties below them too; then normal rows. In bf16 they
+    round to plain ties (rounded here, so both packages see one input)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((V, d)).astype(np.float32)
+    j = np.arange(d)
+    x[0] = 1.0 + j * 2.0**-20
+    x[1] = -1.0 - j * 2.0**-20
+    for r, m in ((2, 32), (3, 33)):
+        x[r] = 0.0
+        x[r, :m] = 1.0 + j[:m] * 2.0**-20
+    x[4] *= 0.1
+    x[4, :10] = 5.0
+    x[4, 10:40] = 3.0 + (j[:30] % 7) * 2.0**-20
+    x[5] = 2.0 + (j % 40) * 2.0**-20
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+    return x
+
+
 def _bits(a: np.ndarray) -> np.ndarray:
     return np.asarray(a, np.float32).view(np.int32)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [128, 256])
-@pytest.mark.parametrize("k", [1, 8, 32])
-def test_plain_matches_pallas(k, d, dtype):
-    x = _rows(d, seed=k + d)
+# the original cases keep their ids; rows of top-16-bit ties at k = 8, 32
+_MASK_CASES = [
+    pytest.param(k, d, dtype, "normal", id=f"{k}-{d}-{dtype}")
+    for dtype in ("float32", "bfloat16") for d in (128, 256) for k in (1, 8, 32)
+] + [
+    pytest.param(k, 256, dtype, "hi16_ties", id=f"hi16_ties-{k}-256-{dtype}")
+    for dtype in ("float32", "bfloat16") for k in (8, 32)
+]
+
+
+@pytest.mark.parametrize("k,d,dtype,kind", _MASK_CASES)
+def test_plain_matches_pallas(k, d, dtype, kind):
+    x = _rows(d, seed=k + d) if kind == "normal" else _hi16_tie_rows(d, k + d, dtype)
     jx = jnp.asarray(x, dtype=getattr(jnp, dtype))
     y_ref, take_ref = tp._mask_pallas_raw(jx, k, True)
     y, take = maxk_mask_plain(torch.from_numpy(x).to(getattr(torch, dtype)), k)
