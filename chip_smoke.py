@@ -18,7 +18,10 @@ the kernel suite on the five training graphs (validated), the MaxK probe
 Before the paths, every kernel is held against its plain version at its
 path's shapes, and timed beside its bound and, where one exists, the
 PyTorch library call that computes the same function; the CBSR densify
-also on the top-k kernel's output, the training path's input. The
+and sample also on the top-k kernel's output, the training path's input,
+and the sample and take-along-rows bounded by the 32-byte sectors and
+64-byte granules their selectors touch beside the elements
+(`sector_bound_ms`, `granule_bound_ms`: `micro.in_row_gather_bound`). The
 `launch_path` line takes K8's call at probe_topk's (256, 256) apart on the
 host clock, step by step, for the earlier and the current launch path.
 Each phase prints one JSON line; every failure exits non-zero with no
@@ -132,11 +135,34 @@ def phase_kernels(v: int):
     main path's shapes, timed beside its bound and the library call."""
     import torch
 
-    from maxk_tpu_torch.bench.micro import bound
+    from maxk_tpu_torch.bench.micro import bound, in_row_gather_bound
     from maxk_tpu_torch.ops import cbsr_cuda, topk_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = {}
+
+    def sample_check(z, sel, input_name, key):
+        """K3 on (v, K) selectors `sel` into z: bit-equal to the plain
+        version, timed beside `torch.gather`; bounded by the distinct elements
+        the selectors touch and, beside it, by the 32-byte sectors and
+        64-byte granules (`micro.in_row_gather_bound`)."""
+        out = cbsr_cuda.sample_cuda(z, sel)
+        ref = cbsr_cuda.sample_plain(z, sel)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        exact = torch.equal(_bits(out), _bits(ref))
+        sel64 = sel.long()
+        ms = cuda_ms(lambda: cbsr_cuda.sample_cuda(z, sel), TIMED)
+        plain = cuda_ms(lambda: cbsr_cuda.sample_plain(z, sel), TIMED)
+        lib = cuda_ms(lambda: torch.gather(z, 1, sel64), TIMED)
+        b = in_row_gather_bound(sel, DIM, z.element_size())
+        tag = str(z.dtype).split(".")[-1]
+        emit("kernel", name="cbsr_sample", input=input_name, dtype=tag, shape=list(sel.shape),
+             dim=DIM, exact=exact, max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+             library="torch.gather", bound_share=b["bound_ms"] / ms,
+             sector_bound_share=b["sector_bound_ms"] / ms, **b)
+        require(exact, f"cbsr_sample {tag} on {input_name} selectors: differs from the plain version")
+        res[("cbsr_sample", key)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **b)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
         isz = torch.finfo(dtype).bits // 8
@@ -194,7 +220,8 @@ def phase_kernels(v: int):
         b = bound(v * DIM * isz + v * K * 8)  # x in; f32 values and int32 selectors out
         emit("kernel", name="topk_cbsr", dtype=tag, shape=[v, DIM], k=K, exact=exact,
              max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-             library="torch.topk (selection only, different output layout)", **b)
+             library="torch.topk (selection only, different output layout)",
+             bound_share=b["bound_ms"] / ms, **b)
         require(exact, f"topk_cbsr {tag}: sel/vals differ from the plain version")
         res[("topk_cbsr", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **b)
 
@@ -220,24 +247,11 @@ def phase_kernels(v: int):
                                                          library_ms=lib, **b)
         del cv, csel64
 
+        # K3 on random selectors (duplicates within a row) and on K4's output,
+        # the training paths' input (distinct, ascending within a row)
         z = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
-        out = cbsr_cuda.sample_cuda(z, sel)
-        ref = cbsr_cuda.sample_plain(z, sel)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        exact = torch.equal(out, ref)
-        ms = cuda_ms(lambda: cbsr_cuda.sample_cuda(z, sel), TIMED)
-        plain = cuda_ms(lambda: cbsr_cuda.sample_plain(z, sel), TIMED)
-        lib = cuda_ms(lambda: torch.gather(z, 1, sel64), TIMED)
-        # selectors in, the distinct elements they touch read, (v, K) out
-        touched = _unique(sel64 + DIM * torch.arange(v, device="cuda")[:, None])
-        b = bound(v * K * (4 + isz) + touched * isz)
-        emit("kernel", name="cbsr_sample", dtype=tag, shape=[v, K], dim=DIM, exact=exact,
-             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, library="torch.gather",
-             **b)
-        require(exact, f"cbsr_sample {tag}: differs from the plain version")
-        res[("cbsr_sample", tag)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                         library_ms=lib, **b)
+        sample_check(z, sel, "random", tag)
+        sample_check(z, csel, "topk_cbsr", f"topk_cbsr_{tag}")
         del x, y, take, y0, take0, vals, sel, sel64, cvals, csel, cvals0, csel0, out, ref, z
     return res
 
@@ -269,7 +283,7 @@ def phase_bench_kernels(bg, sched):
     shapes, K8 at probe_topk's. K5 is timed by the probe (phase_probes)."""
     import torch
 
-    from maxk_tpu_torch.bench.micro import bound
+    from maxk_tpu_torch.bench.micro import bound, in_row_gather_bound
     from maxk_tpu_torch.ops import gather_cuda, spmm_bricks
 
     res = {}
@@ -301,11 +315,12 @@ def phase_bench_kernels(bg, sched):
         res[("spmm_bricks", tag)] = dict(max_abs_err=err["max_abs"])
         del x, y, ref, e
 
-    def gather_check(name, kernel, plain, library_fn, args, nbytes, key, iters=TIMED,
+    def gather_check(name, kernel, plain, library_fn, args, b, key, iters=TIMED,
                      rounds=1, **shape):
-        """`rounds` > 1: kernel and library call are each the median of
-        that many runs of `iters` launches, taken in turns (kernel, library,
-        library, kernel, ...), with the range beside."""
+        """`b`: the bound (`micro.bound`). `rounds` > 1: kernel and library
+        call are each the median of that many runs of `iters` launches, taken
+        in turns (kernel, library, library, kernel, ...), with the range
+        beside."""
         out = kernel(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
@@ -322,7 +337,6 @@ def phase_bench_kernels(bg, sched):
         spread = {} if rounds == 1 else {
             "rounds": rounds, "ms_range": [min(runs["ms"]), max(runs["ms"])],
             "library_ms_range": [min(runs["library_ms"]), max(runs["library_ms"])]}
-        b = bound(nbytes)
         emit("kernel", name=name, exact=exact, max_abs_err=err, ms=ms, plain_ms=plain_ms,
              library_ms=lib, bound_share=b["bound_ms"] / ms, iters=iters, **spread, **shape, **b)
         require(exact, f"{name} {shape}: differs from the plain version")
@@ -338,7 +352,7 @@ def phase_bench_kernels(bg, sched):
             idx = torch.randint(0, s, (n,), generator=gen, device="cuda", dtype=torch.int32)
             gather_check("slab_gather", gather_cuda.slab_gather_cuda,
                          gather_cuda.gather_rows_plain, lambda t, i: torch.index_select(t, 0, i),
-                         (slab, idx), n * 4 + s * DIM * isz + n * DIM * isz, f"{s}_{tag}",
+                         (slab, idx), bound(n * 4 + s * DIM * isz + n * DIM * isz), f"{s}_{tag}",
                          dtype=tag, slab=[s, DIM], n=n, library="torch.index_select")
     del slab, idx
 
@@ -353,7 +367,7 @@ def phase_bench_kernels(bg, sched):
         idx = torch.randint(0, v7, (n7,), generator=gen, device="cuda", dtype=torch.int32)
         gather_check("dma_gather", gather_cuda.dma_gather_cuda, gather_cuda.gather_rows_plain,
                      lambda t, i: torch.index_select(t, 0, i), (x, idx),
-                     n7 * 4 + (_unique(idx) + n7) * DIM * isz, tag, rounds=ROUNDS,
+                     bound(n7 * 4 + (_unique(idx) + n7) * DIM * isz), tag, rounds=ROUNDS,
                      dtype=tag, table=[v7, DIM], n=n7, library="torch.index_select")
     del x, idx
 
@@ -369,11 +383,12 @@ def phase_bench_kernels(bg, sched):
         else:
             idx = torch.randint(0, DIM, (r, K), generator=gen, device="cuda", dtype=torch.int32)
         idx64 = idx.long()
-        touched = _unique(idx64 + DIM * torch.arange(r, device="cuda")[:, None])
+        # as K3's: by the distinct elements read, and beside it by the sectors
+        # and granules
         gather_check("take_along_rows", gather_cuda.take_along_rows_cuda,
                      gather_cuda.take_along_rows_plain,
                      lambda t, i, i64=idx64: torch.gather(t, 1, i64), (x, idx),
-                     r * K * (4 + isz) + touched * isz, f"{r}_{tag}",
+                     in_row_gather_bound(idx, DIM, isz), f"{r}_{tag}",
                      iters=1_000 if r == 256 else TIMED, dtype=tag, shape=[r, DIM], k=K,
                      library="torch.gather")
     return res

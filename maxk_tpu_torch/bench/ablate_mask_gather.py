@@ -10,10 +10,15 @@ work taken out by a text edit:
   no_search    the threshold fixed at the key of 1.0: loads, tie pass, stores
   no_stores    y and take stored only for k < 1 (never): loads and search
   loads_only   each lane's elements folded, stored only on one value
+  two_level    f32 by the two-level compare search in place of the
+               bit-sliced one (`search_edits`)
+  sliced16     bf16 by the bit-sliced search in place of the 16-step
+               compare search (`search_edits`)
   strided      the design it replaced: lane l owns columns i*32+l, scalar
-               loads and stores, the 32-step search (`maxk::row_topk_mask`,
-               still the top-k → CBSR kernel's); `strided_no_search`,
-               `strided_no_stores`, `strided_loads_only` its same ablations
+               loads and stores, the 32-step search (`STRIDED_SEARCH` below,
+               which the top-k → CBSR ablation's strided design shares);
+               `strided_no_search`, `strided_no_stores`,
+               `strided_loads_only` its same ablations
 
 and `torch.topk` beside them. K7 at micro's shape (n random rows of an
 (n, dim) table), f32 and bf16; copies of `csrc/gather.cu`:
@@ -37,7 +42,7 @@ and `torch.topk` beside them. K7 at micro's shape (n random rows of an
 
 and `torch.index_select` beside them. Every arm is the median of --rounds
 runs of 20 launches after one, the arms taken in turns, their order
-reversed each run. `kernel`, `strided`, `cp_async`, `tma_ring`,
+reversed each run. `kernel`, `two_level`, `sliced16`, `strided`, `cp_async`, `tma_ring`,
 `warp_rows` and `row_ranges` compute the function; each of those is held equal to the plain
 version first. Prints one JSON line: per arm the median and range in ms,
 the bound, the card's name.
@@ -82,9 +87,81 @@ GATHER_EDITS = {
                      "q[u] = make_uint4(r, (unsigned)g, 0, 0);")],
 }
 
+SEARCH_ARMS = ("two_level", "sliced16")
+
+
+def search_edits(common: str) -> dict:
+    """The search arms of the MaxK mask and the top-k → CBSR kernel, whose
+    search lines are the same; `common` is common.cuh's text:
+      two_level  f32 at D <= 256 by the two-level compare search (common.cuh
+                 inlined with the bit-sliced search's reach set to 0)
+      sliced16   bf16 at D <= 256 by the bit-sliced search on 16-bit keys
+    """
+    inlined = edited("search_edits", "two_level", common,
+                     [("#pragma once\n", ""),
+                      ("constexpr int kSlicedMaxNpl = 8;", "constexpr int kSlicedMaxNpl = 0;")])
+    return {
+        "two_level": [('#include "common.cuh"\n', inlined)],
+        "sliced16": [("mask = maxk::row_topk_mask16<NPL>(key, k, lane);",
+                      "if constexpr (NPL <= maxk::kSlicedMaxNpl) mask = maxk::row_topk_mask_sliced<NPL, 16>"
+                      "(key, k, lane); else mask = maxk::row_topk_mask16<NPL>(key, k, lane);")],
+    }
+
+
+# The strided search that the MaxK mask and the top-k → CBSR kernels ran
+# before they took contiguous columns a lane (common.cuh's search).
+STRIDED_SEARCH = r'''
+namespace strided {
+__device__ __forceinline__ float from_key(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// Exact top-k of one row held by one warp, lane `l` holding the keys of
+// columns i*32+l, i < NPL. Returns a mask whose bit i says the lane's column
+// i*32+l is taken, exactly k per row:
+//   * threshold = the k-th largest key, by a 32-step binary search from the
+//     top bit (largest t with #{key >= t} >= k), one `__reduce_add_sync` a
+//     step;
+//   * every key above the threshold is taken, then the lowest columns among
+//     keys equal to it until k are taken; the rank among equal keys is an
+//     exclusive prefix count in column order (a running warp total plus
+//     `__popc` of the ballot below the lane).
+template <int NPL>
+__device__ __forceinline__ uint32_t row_topk_mask(const uint32_t (&key)[NPL], int k, int lane) {
+  uint32_t thr = 0;
+#pragma unroll 1
+  for (int bit = 31; bit >= 0; --bit) {
+    const uint32_t cand = thr | (1u << bit);
+    unsigned c = 0;
+#pragma unroll
+    for (int i = 0; i < NPL; ++i) c += key[i] >= cand;
+    if (__reduce_add_sync(maxk::kFull, c) >= (unsigned)k) thr = cand;
+  }
+  unsigned n_gt = 0;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) n_gt += key[i] > thr;
+  n_gt = __reduce_add_sync(maxk::kFull, n_gt);
+  const unsigned need = (unsigned)k - n_gt;  // >= 1 by the search invariant
+  const unsigned below = (1u << lane) - 1u;
+  unsigned eq_before = 0;  // equal keys in earlier columns (warp-uniform)
+  uint32_t take = 0;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const bool eq = key[i] == thr;
+    const unsigned ballot = __ballot_sync(maxk::kFull, eq);
+    const bool t = key[i] > thr || (eq && eq_before + __popc(ballot & below) < need);
+    eq_before += __popc(ballot);
+    take |= (uint32_t)t << i;
+  }
+  return take;
+}
+}  // namespace strided
+'''
+
 # the designs replaced or not kept, with C entry points of the kernels' shapes
 EARLIER = r'''
 #include "common.cuh"
+''' + STRIDED_SEARCH + r'''
 namespace {
 // MODE 0 the kernel, 1 search removed (threshold fixed at the key of 1.0,
 // then the tie pass), 2 stores removed, 3 loads only
@@ -121,13 +198,13 @@ __global__ void __launch_bounds__(256) strided_mask(const T* __restrict__ x, T* 
       eq_before += __popc(ballot);
     }
   } else {
-    mask = maxk::row_topk_mask<NPL>(key, k, lane);
+    mask = strided::row_topk_mask<NPL>(key, k, lane);
   }
   if (MODE == 2 && k > 0) return;
 #pragma unroll
   for (int i = 0; i < NPL; ++i) {
     const bool t = (mask >> i) & 1u;
-    maxk::store_f32(y + base + i * 32, t ? maxk::from_key(key[i]) : 0.0f);
+    maxk::store_f32(y + base + i * 32, t ? strided::from_key(key[i]) : 0.0f);
     take[base + i * 32] = t;
   }
 }
@@ -338,26 +415,25 @@ extern "C" int tma_ring_gather(const void* x, const void* idx, void* out, int v,
 '''
 
 
-def _edited(name: str, src: str, edits) -> str:
+def edited(tool: str, name: str, src: str, edits) -> str:
+    """`src` with each (old, new) of `edits` applied; raises naming the
+    variant `name` of `tool` if an old text is not in the source."""
     for old, new in edits:
         if old not in src:
-            raise RuntimeError(f"ablate_mask_gather: edit {name!r} no longer applies to the source")
+            raise RuntimeError(f"{tool}: edit {name!r} no longer applies to the source")
         src = src.replace(old, new)
     return src
 
 
-def build_variants() -> dict:
-    """(kernel, variant) -> the loaded library of that copy of the source."""
+def build(tool: str, sources: dict) -> dict:
+    """(kernel, variant) -> the loaded library of the source text at that
+    key, all built by nvcc at once into the kernels' build directory."""
     from maxk_tpu_torch.ops import _native
 
     _native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = {("earlier", ""): EARLIER}
-    mask, gather = ((_native.CSRC / f).read_text() for f in ("maxk_mask.cu", "gather.cu"))
-    sources.update({("mask", k): _edited(k, mask, e) for k, e in MASK_EDITS.items()})
-    sources.update({("gather", k): _edited(k, gather, e) for k, e in GATHER_EDITS.items()})
     cmds, paths = [], {}
     for key, text in sources.items():
-        cu = _native.BUILD_DIR / f"ablate_{key[0]}_{key[1] or 'designs'}.cu"
+        cu = _native.BUILD_DIR / f"{tool}_{key[0]}_{key[1] or 'designs'}.cu"
         cu.write_text(text)
         paths[key] = cu.with_suffix(".so")
         cmds.append([_native._nvcc(), *_native.NVCC_FLAGS, f"-I{_native.CSRC}", "-shared",
@@ -366,13 +442,27 @@ def build_variants() -> dict:
     return {key: ctypes.CDLL(str(path)) for key, path in paths.items()}
 
 
-def _entry(lib, name: str, argtypes):
+def build_variants() -> dict:
+    """(kernel, variant) -> the loaded library of that copy of the source."""
+    from maxk_tpu_torch.ops import _native
+
+    tool = "ablate_mask_gather"
+    sources = {("earlier", ""): EARLIER}
+    mask, gather, common = ((_native.CSRC / f).read_text()
+                            for f in ("maxk_mask.cu", "gather.cu", "common.cuh"))
+    edits = {**MASK_EDITS, **search_edits(common)}
+    sources.update({("mask", k): edited(tool, k, mask, e) for k, e in edits.items()})
+    sources.update({("gather", k): edited(tool, k, gather, e) for k, e in GATHER_EDITS.items()})
+    return build(tool, sources)
+
+
+def entry(lib, name: str, argtypes):
     fn = getattr(lib, name)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
 
 
-def _turns(arms: dict, rounds: int, iters: int = 20) -> dict:
+def turns(arms: dict, rounds: int, iters: int = 20) -> dict:
     """Per arm [median, min, max] ms of `rounds` runs of `iters` launches
     after one, by CUDA events, the arms in turns, the order reversed each
     run."""
@@ -393,7 +483,7 @@ def _turns(arms: dict, rounds: int, iters: int = 20) -> dict:
     return {name: [statistics.median(t), min(t), max(t)] for name, t in runs.items()}
 
 
-def _bits(t):
+def bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
@@ -421,8 +511,8 @@ def main(argv=None) -> dict:
         take = torch.empty((v, d), dtype=torch.uint8, device="cuda")
         name = "maxk_mask_f32" if dtype == torch.float32 else "maxk_mask_bf16"
         sig = _native.SIGNATURES[name]
-        fns = {var: _entry(libs[("mask", var)], name, sig) for var in MASK_EDITS}
-        fns.update({f"strided{var}": _entry(libs[("earlier", "")], f"strided{var}_{name[10:]}", sig)
+        fns = {var: entry(libs[("mask", var)], name, sig) for var in (*MASK_EDITS, *SEARCH_ARMS)}
+        fns.update({f"strided{var}": entry(libs[("earlier", "")], f"strided{var}_{name[10:]}", sig)
                     for var in ("", "_no_search", "_no_stores", "_loads_only")})
 
         def call(fn):
@@ -431,14 +521,14 @@ def main(argv=None) -> dict:
 
         y0, take0 = topk_cuda.maxk_mask_plain(x, k)
         exact = {}
-        for var in ("kernel", "strided"):
+        for var in ("kernel", *SEARCH_ARMS, "strided"):
             call(fns[var])()
             torch.cuda.synchronize()
-            exact[var] = torch.equal(_bits(y), _bits(y0)) and torch.equal(take, take0)
+            exact[var] = torch.equal(bits(y), bits(y0)) and torch.equal(take, take0)
         arms = {var: call(fn) for var, fn in fns.items()}
         arms["torch_topk"] = lambda: torch.topk(x, k)
         out[f"maxk_mask_{tag}"] = {"exact": exact, **bound(v * d * (2 * isz + 1)),
-                                   **_turns(arms, args.rounds)}
+                                   **turns(arms, args.rounds)}
         del x, y, take, y0, take0
 
         n = args.n
@@ -446,8 +536,8 @@ def main(argv=None) -> dict:
         idx = torch.randint(0, n, (n,), generator=gen, device="cuda", dtype=torch.int32)
         o = torch.empty_like(x)
         sig = _native.SIGNATURES["dma_gather"]
-        fns = {var: _entry(libs[("gather", var)], "dma_gather", sig) for var in GATHER_EDITS}
-        fns.update({var: _entry(libs[("earlier", "")], f"{var}_gather", sig)
+        fns = {var: entry(libs[("gather", var)], "dma_gather", sig) for var in GATHER_EDITS}
+        fns.update({var: entry(libs[("earlier", "")], f"{var}_gather", sig)
                     for var in ("cp_async", "cp_async_loads_only", "cp_async_stores_only",
                                 "tma_ring", "warp_rows", "row_ranges")})
 
@@ -461,11 +551,11 @@ def main(argv=None) -> dict:
             o.zero_()
             gcall(fns[var])()
             torch.cuda.synchronize()
-            exact[var] = torch.equal(_bits(o), _bits(ref))
+            exact[var] = torch.equal(bits(o), bits(ref))
         arms = {var: gcall(fn) for var, fn in fns.items()}
         arms["index_select"] = lambda: torch.index_select(x, 0, idx)
         nbytes = n * 4 + (int(idx.unique().numel()) + n) * d * isz
-        out[f"dma_gather_{tag}"] = {"exact": exact, **bound(nbytes), **_turns(arms, args.rounds)}
+        out[f"dma_gather_{tag}"] = {"exact": exact, **bound(nbytes), **turns(arms, args.rounds)}
         del x, idx, o, ref
     print(json.dumps(out), flush=True)
     return out

@@ -40,6 +40,26 @@ def bound(nbytes: float, flops: float = 0.0, dtype: str = "float32") -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def in_row_gather_bound(sel: torch.Tensor, dim: int, isz: int) -> dict:
+    """The bound of out[r, j] = z[r, sel[r, j]] on (V, k) int32 selectors
+    into a (V, dim) table of `isz`-byte elements: selectors read and (V, k)
+    written once, plus the distinct elements the selectors touch
+    (`bound_ms`); or plus the distinct 32-byte sectors they touch, the unit
+    a cache moves (`sector_bound_ms`), or the distinct 64-byte granules
+    (`granule_bound_ms`). A row starts on a sector (granule) where dim·isz
+    is a multiple of 32 (64). Counted on the selectors' device."""
+    v, k = sel.shape
+    flat = sel.long() + dim * torch.arange(v, device=sel.device)[:, None]
+    fixed = v * k * (4 + isz)
+
+    def distinct(unit: int) -> int:
+        return int((flat * isz // unit).unique().numel())
+
+    return {**bound(fixed + distinct(isz) * isz),
+            "sector_bound_ms": bound(fixed + distinct(32) * 32)["bound_ms"],
+            "granule_bound_ms": bound(fixed + distinct(64) * 64)["bound_ms"]}
+
+
 def _tensors(obj):
     if isinstance(obj, torch.Tensor):
         yield obj

@@ -29,8 +29,23 @@
 // warps in flight: 8 blocks an SM, 32 registers with every loop rolled.
 // The TPU kernel rounds after every add in the output dtype, so with bf16
 // and duplicate selectors the two may differ by one bf16 ulp.
-// sample design: one thread per (r, l); a bounds check on the selector
-// (`maxk::gather_in_row`, which gather.cu's take-along-rows shares).
+// sample design: each slot is a selector load, a data load that waits for
+// it, and a store. At k = 32 of D = 256 the data loads touch ≈20 of an f32
+// row's 32 sectors (≈14 of bf16's 16), and device memory serves them as
+// 64-byte granules, so the time is those granules at the card's rate: the
+// kernel's reach is its access pattern. A thread takes kSlots slots spaced
+// by the block, so that each load instruction of a warp asks for 32
+// consecutive slots (one row at k = 32), whose requests to the row's
+// shared sectors merge; a thread finds each row by one 32-bit division (64
+// bits only past 2^32 slots), not a 64-bit division a slot. f32: one slot
+// a thread, loads through the read-only cache; bf16: 4 slots a thread (4
+// loads in flight), selectors streamed (`ld.global.cs`) and data loaded
+// without L1 allocation (`ld.global.nc.L1::no_allocate`). Each is the
+// faster shape in its dtype; 4 slots a thread as one 16-byte selector load
+// (a warp instruction then spans 4 rows and asks for their shared sectors
+// again), a warp reading its row whole, and the design this replaced (a
+// thread a slot, a 64-bit division each) measured slower or no faster
+// (bench/ablate_topk_sample.py, PERF.md). Bits move, not values.
 #include "common.cuh"
 
 namespace {
@@ -128,12 +143,48 @@ __global__ void __launch_bounds__(kDensifyWarps * 32, 8)
   }
 }
 
-template <typename T>
-__global__ void sample_kernel(const T* __restrict__ z, const int* __restrict__ sel,
-                              T* __restrict__ out, int64_t n, int k, int dim) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    maxk::gather_in_row(z, sel, out, i, k, dim);
+constexpr int kSampleThreads = 256;
+
+__device__ __forceinline__ uint32_t load_data(const uint32_t* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint16_t load_data(const uint16_t* p) {
+  uint16_t v;
+  asm("ld.global.nc.L1::no_allocate.b16 %0, [%1];" : "=h"(v) : "l"(p));
+  return v;
+}
+
+// U: the element's bits (uint32_t for f32, uint16_t for bf16); SLOTS slots
+// a thread, kSampleThreads apart; L1: loads through the read-only cache,
+// else streaming selectors and data not allocated in L1
+template <typename U, int SLOTS, bool L1>
+__global__ void __launch_bounds__(kSampleThreads)
+    sample_kernel(const U* __restrict__ z, const int* __restrict__ sel, U* __restrict__ out,
+                  int rows, int k, int dim) {
+  const int64_t n = (int64_t)rows * k;
+  const int64_t i0 = (int64_t)blockIdx.x * (kSampleThreads * SLOTS) + threadIdx.x;
+  int c[SLOTS];
+  int64_t r[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    const int64_t i = i0 + j * kSampleThreads;
+    c[j] = i < n ? (L1 ? __ldg(sel + i) : __ldcs(sel + i)) : -1;
+    r[j] = n <= 0xffffffffll ? (int64_t)((uint32_t)i / (uint32_t)k) : i / k;
+  }
+  U v[SLOTS];
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j) {
+    v[j] = 0;
+    if ((unsigned)c[j] < (unsigned)dim) {  // never an address outside the row
+      const U* p = z + r[j] * dim + c[j];
+      v[j] = L1 ? __ldg(p) : load_data(p);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < SLOTS; ++j)
+    if (i0 + j * kSampleThreads < n) out[i0 + j * kSampleThreads] = v[j];
 }
 
 template <typename T>
@@ -158,17 +209,18 @@ int launch_densify(const void* vals, const void* sel, void* out, int rows, int k
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename U>
 int launch_sample(const void* z, const void* sel, void* out, int rows, int k,
                   int dim, cudaStream_t stream) {
   if (rows <= 0 || k < 1 || dim < 1) return (int)cudaErrorInvalidValue;
-  const int64_t n = (int64_t)rows * k;
-  const int threads = 256;
-  const int64_t want = (n + threads - 1) / threads;
-  const int64_t blocks = want < ((int64_t)1 << 20) ? want : ((int64_t)1 << 20);
-  sample_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(z), static_cast<const int*>(sel),
-      static_cast<T*>(out), n, k, dim);
+  // the faster shape of each dtype (bench/ablate_topk_sample.py)
+  constexpr int kSlots = sizeof(U) == 4 ? 1 : 4;
+  constexpr bool kL1 = sizeof(U) == 4;
+  const int64_t per_block = (int64_t)kSampleThreads * kSlots;
+  const int64_t blocks = ((int64_t)rows * k + per_block - 1) / per_block;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  sample_kernel<U, kSlots, kL1><<<(unsigned)blocks, kSampleThreads, 0, stream>>>(
+      static_cast<const U*>(z), static_cast<const int*>(sel), static_cast<U*>(out), rows, k, dim);
   return (int)cudaGetLastError();
 }
 
@@ -189,12 +241,12 @@ extern "C" int cbsr_densify_bf16(const void* vals, const void* sel, void* out,
 
 extern "C" int cbsr_sample_f32(const void* z, const void* sel, void* out,
                                int rows, int k, int dim, void* stream) {
-  return launch_sample<float>(z, sel, out, rows, k, dim,
-                              static_cast<cudaStream_t>(stream));
+  return launch_sample<uint32_t>(z, sel, out, rows, k, dim,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cbsr_sample_bf16(const void* z, const void* sel, void* out,
                                 int rows, int k, int dim, void* stream) {
-  return launch_sample<__nv_bfloat16>(z, sel, out, rows, k, dim,
-                                      static_cast<cudaStream_t>(stream));
+  return launch_sample<uint16_t>(z, sel, out, rows, k, dim,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,9 @@
 // Shared helpers for the maxk_tpu_torch kernels: float32 and bfloat16
-// element access through one float-valued interface, the exact row
-// top-k selections of the top-k → CBSR kernel (topk_cbsr.cu, columns
-// strided over the lanes) and of the MaxK mask (maxk_mask.cu, contiguous
-// columns a lane), and the in-row gather shared by the CBSR sample
-// (cbsr.cu) and the take-along-rows kernel (gather.cu).
+// element access through one float-valued interface, the exact row top-k
+// selections of the MaxK mask (maxk_mask.cu) and the top-k → CBSR kernel
+// (topk_cbsr.cu), both with contiguous columns a lane (compare-based and
+// bit-sliced searches), and the in-row gather of the take-along-rows
+// kernel (gather.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,55 +30,6 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ uint32_t to_key(float v) {
   const uint32_t b = __float_as_uint(v);
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_key(uint32_t key) {
-  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
-}
-
-// Exact top-k of one row held by one warp, the top-k → CBSR kernel's
-// layout: lane `l` holds the keys of columns i*32+l, i < NPL. Returns a
-// mask whose bit i says the lane's column i*32+l is taken, exactly k per
-// row:
-//   * threshold = the k-th largest key, by a 32-step binary search from
-//     the top bit (largest t with #{key >= t} >= k), one
-//     `__reduce_add_sync` per step;
-//   * every key above the threshold is taken, then the lowest columns
-//     among keys equal to it until k are taken; the rank among equal keys
-//     is an exclusive prefix count in column order (a running warp total
-//     plus `__popc` of the ballot below the lane).
-// Every lane of the warp must call it (warp-synchronous).
-template <int NPL>
-__device__ __forceinline__ uint32_t row_topk_mask(const uint32_t (&key)[NPL], int k,
-                                                  int lane) {
-  static_assert(NPL >= 1 && NPL <= 32, "one mask bit per key");
-  uint32_t thr = 0;
-#pragma unroll 1
-  for (int bit = 31; bit >= 0; --bit) {
-    const uint32_t cand = thr | (1u << bit);
-    unsigned c = 0;
-#pragma unroll
-    for (int i = 0; i < NPL; ++i) c += key[i] >= cand;
-    if (__reduce_add_sync(kFull, c) >= (unsigned)k) thr = cand;
-  }
-
-  unsigned n_gt = 0;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) n_gt += key[i] > thr;
-  n_gt = __reduce_add_sync(kFull, n_gt);
-  const unsigned need = (unsigned)k - n_gt;  // >= 1 by the search invariant
-  const unsigned below = (1u << lane) - 1u;
-  unsigned eq_before = 0;  // equal keys in earlier columns (warp-uniform)
-  uint32_t take = 0;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const bool eq = key[i] == thr;
-    const unsigned ballot = __ballot_sync(kFull, eq);
-    const bool t = key[i] > thr || (eq && eq_before + __popc(ballot & below) < need);
-    eq_before += __popc(ballot);
-    take |= (uint32_t)t << i;
-  }
-  return take;
 }
 
 // Order-preserving 16-bit key of a bf16's bits `u`: the top half of
@@ -150,8 +101,76 @@ __device__ __forceinline__ uint32_t row_topk_mask16(const uint32_t (&key)[NPL], 
   return take_at<NPL>(key, search_bits<NPL, 15, 0>(key, 0u, (unsigned)k), (unsigned)k, lane);
 }
 
+// Rows of at most 32·kSlicedMaxNpl keys take the bit-sliced search below
+// in row_topk_mask32: a 32-bit search that stops early pays there.
+constexpr int kSlicedMaxNpl = 8;
+
+// Exact top-k of one row of KB-bit keys (KB 16 or 32) held by one warp,
+// lane `l` holding columns l*NPL + i, NPL <= 8, bit-sliced:
+//   * an 8x8 bit transpose in each byte of the lane's (zero-padded) 8 keys
+//     turns them into KB masks over the lane's keys, one a key bit (byte j
+//     of r[c] is the mask of bit 8j + c): 12 exchanges of 3-4 instructions;
+//   * a binary search for the threshold from the top bit, each step one
+//     AND, one popc and one `__reduce_add_sync` whatever NPL: `eq` holds
+//     the lane's keys equal to the threshold on the bits fixed so far,
+//     `gt` those above it, and the warp's count of gt | eq is kept; it
+//     stops as soon as that count is exactly k, since gt | eq is then the
+//     top k with every key equal to the k-th among them (no tie to break).
+//     At normal data that is about half-way through an f32 key;
+//   * otherwise, after the last bit, `eq` holds the keys equal to the
+//     threshold and the lowest columns among them are taken: the equal keys
+//     of lower lanes (one exclusive warp scan) plus those earlier in the
+//     lane.
+// The same taken set as the compare-based searches.
+template <int NPL, int KB>
+__device__ __forceinline__ uint32_t row_topk_mask_sliced(const uint32_t (&key)[NPL], int k,
+                                                         int lane) {
+  static_assert(NPL >= 1 && NPL <= 8 && (KB == 16 || KB == 32), "8 keys of 16 or 32 bits a lane");
+  uint32_t r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = i < NPL ? key[i] : 0u;  // padding: outside eq, never counted
+#define MAXK_SWAP(a, b, s, m)                         \
+  {                                                   \
+    const uint32_t t = ((r[a] >> (s)) ^ r[b]) & (m);  \
+    r[a] ^= t << (s);                                 \
+    r[b] ^= t;                                        \
+  }
+  MAXK_SWAP(0, 4, 4, 0x0f0f0f0fu) MAXK_SWAP(1, 5, 4, 0x0f0f0f0fu)
+  MAXK_SWAP(2, 6, 4, 0x0f0f0f0fu) MAXK_SWAP(3, 7, 4, 0x0f0f0f0fu)
+  MAXK_SWAP(0, 2, 2, 0x33333333u) MAXK_SWAP(1, 3, 2, 0x33333333u)
+  MAXK_SWAP(4, 6, 2, 0x33333333u) MAXK_SWAP(5, 7, 2, 0x33333333u)
+  MAXK_SWAP(0, 1, 1, 0x55555555u) MAXK_SWAP(2, 3, 1, 0x55555555u)
+  MAXK_SWAP(4, 5, 1, 0x55555555u) MAXK_SWAP(6, 7, 1, 0x55555555u)
+#undef MAXK_SWAP
+  uint32_t eq = (1u << NPL) - 1u, gt = 0u;
+  unsigned above = 0, at_or_above = 32 * NPL;  // the warp's counts of gt, gt | eq
+#pragma unroll
+  for (int b = KB - 1; b >= 0; --b) {
+    if (at_or_above == (unsigned)k) break;  // warp-uniform
+    const uint32_t x = eq & (r[b & 7] >> (8 * (b >> 3)));
+    const unsigned c = __reduce_add_sync(kFull, __popc(x));
+    if (above + c >= (unsigned)k) {  // the threshold has bit b
+      eq = x;
+      at_or_above = above + c;
+    } else {
+      above += c;
+      gt |= x;
+      eq ^= x;
+    }
+  }
+  if (at_or_above == (unsigned)k) return gt | eq;
+  const unsigned need = (unsigned)k - above;  // >= 1
+  unsigned before = exclusive_warp_sum(__popc(eq), lane);
+  uint32_t take = gt;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i)
+    if ((eq >> i) & 1u) take |= (uint32_t)(before++ < need) << i;
+  return take;
+}
+
 // Exact top-k of one row of 32-bit keys (to_key) held by one warp, lane
-// `l` holding columns l*NPL + i. Two levels of 16 bits:
+// `l` holding columns l*NPL + i. Up to kSlicedMaxNpl keys a lane, the
+// bit-sliced search above; past it, two levels of 16 bits:
 //   1. 16 search steps on the keys' top halves find the threshold's top
 //      half h (comparing a whole key with a candidate whose low half is
 //      0 compares the top halves);
@@ -166,6 +185,7 @@ __device__ __forceinline__ uint32_t row_topk_mask16(const uint32_t (&key)[NPL], 
 template <int NPL>
 __device__ __forceinline__ uint32_t row_topk_mask32(const uint32_t (&key)[NPL], int k, int lane,
                                                     uint16_t* scratch) {
+  if constexpr (NPL <= kSlicedMaxNpl) return row_topk_mask_sliced<NPL, 32>(key, k, lane);
   const uint32_t h = search_bits<NPL, 31, 16>(key, 0u, (unsigned)k) >> 16;
   unsigned above = 0, same = 0;
 #pragma unroll

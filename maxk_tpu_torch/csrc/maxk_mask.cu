@@ -18,10 +18,13 @@
 //     pointers not 16-byte aligned, move element by element;
 //   * bf16: the 16-bit key (`maxk::to_key16`) orders exactly, so the search
 //     is 16 steps (`maxk::row_topk_mask16`);
-//   * f32: 16 steps on the keys' top halves, then 16 one-compare ballot
-//     steps over the few keys that share the threshold's top half,
-//     compacted one a lane (`maxk::row_topk_mask32`; many equal values
-//     take the full search of the low half instead);
+//   * f32 (`maxk::row_topk_mask32`): up to D = 256, the bit-sliced search
+//     (`maxk::row_topk_mask_sliced`: a lane's keys transposed into one mask
+//     a key bit, one AND, popc and reduction a step, stopping as soon as
+//     exactly k keys are at or above the threshold's prefix); past it, 16
+//     steps on the keys' top halves, then 16 one-compare ballot steps over
+//     the few keys that share the threshold's top half, compacted one a
+//     lane (many equal values take the full search of the low half);
 //   * the rank among keys equal to the threshold is a lane's own prefix
 //     plus one exclusive warp scan.
 // No atomics; 64 bytes of shared memory a warp for the compaction. The

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from maxk_tpu_torch.bench import (ablate_bricks, ablate_mask_gather, kernel_bench, micro,
+from maxk_tpu_torch.bench import (ablate_bricks, ablate_mask_gather, ablate_topk_sample,
+                                  kernel_bench, micro,
                                   probe_bricks, probe_topk)
 from maxk_tpu_torch.ops import gather_cuda
 from maxk_tpu_torch.ops.dispatch import resolve_mode
@@ -167,7 +168,7 @@ def test_pallas_mode_refuses_with_the_reference_reason():
 
 
 @pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks",
-                                   "ablate_bricks", "ablate_mask_gather"])
+                                   "ablate_bricks", "ablate_mask_gather", "ablate_topk_sample"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -175,6 +176,7 @@ def test_entry_points_default_to_the_card(entry):
 
     main = {"bench": bench.main, "kernel_bench": kernel_bench.main, "micro": micro.main,
             "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main,
-            "ablate_bricks": ablate_bricks.main, "ablate_mask_gather": ablate_mask_gather.main}[entry]
+            "ablate_bricks": ablate_bricks.main, "ablate_mask_gather": ablate_mask_gather.main,
+            "ablate_topk_sample": ablate_topk_sample.main}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])

@@ -89,6 +89,23 @@ def test_sample_matches_pallas(dtype, out_of_range):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sample_on_topk_cbsr_selectors_matches_pallas(dtype):
+    """The training paths' selectors: those `topk_cbsr_plain` gives,
+    distinct and ascending within a row."""
+    from maxk_tpu_torch.ops.topk_cuda import topk_cbsr_plain
+
+    rng = np.random.default_rng(12)
+    _, sel = topk_cbsr_plain(torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)), K)
+    assert bool((sel[:, 1:] > sel[:, :-1]).all())
+    z = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)).to(getattr(torch, dtype))
+    ref = cp._sample_raw(jnp.asarray(z.float().numpy(), getattr(jnp, dtype)), jnp.asarray(sel.numpy()),
+                         K, True)
+    got = sample_plain(z, sel)
+    assert got.dtype == z.dtype
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+
+
 def test_densify_sample_are_each_others_backward(monkeypatch):
     """Gradients through the port's Densify/Sample against the Pallas
     custom-VJP pair (densify_pallas, sample_pallas) in interpret mode."""

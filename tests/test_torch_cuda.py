@@ -103,15 +103,36 @@ def test_maxk_mask_backward_is_g_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("v,d,k", [(100, 32, 1), (777, 96, 7), (4097, 256, 32), (300, 1024, 100),
-                                   (65, 64, 64), (40, 1024, 1024)])
+                                   (65, 64, 64), (40, 1024, 1024), (300, 128, 40), (128, 1024, 33),
+                                   (64, 1024, 260), (300, 256, 30)])
 def test_topk_cbsr_kernel_exact(cuda, v, d, k, dtype):
     """K4 against its plain version: selectors equal, values bit for bit
-    (a selected -0.0 is +0.0), k = 1 and k = D included."""
+    (a selected -0.0 is +0.0), on `_rows`' tie rows (more than 32, exactly
+    32 and 33 f32 keys sharing the threshold's top 16 bits), k = 1 and k = D
+    included. D = 96 and bf16 at D = 128 load element by element; k = 7, 30,
+    33, 100 (not multiples of 4) and 260, 1024 (above the staging limit)
+    store each pair from registers, the rest through shared memory."""
     x = _rows(v, d, dtype, cuda)
     vals, sel = topk_cuda.topk_cbsr_cuda(x, k)
     vals0, sel0 = topk_cuda.topk_cbsr_plain(x, k)
     torch.cuda.synchronize()
     assert vals.dtype == torch.float32 and sel.dtype == torch.int32
+    assert torch.equal(sel, sel0) and torch.equal(_bits(vals), _bits(vals0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_cbsr_kernel_unaligned_rows(cuda, dtype):
+    """x one element past a 16-byte boundary: K4 loads element by element,
+    and still agrees bit for bit."""
+    v, d, k = 300, 256, 32
+    flat = torch.empty(v * d + 1, dtype=dtype, device=cuda)
+    x = flat[1:].view(v, d)
+    x.copy_(_rows(v, d, dtype, cuda))
+    assert x.data_ptr() % 16
+    vals, sel = topk_cuda.topk_cbsr_cuda(x, k)
+    vals0, sel0 = topk_cuda.topk_cbsr_plain(x, k)
+    torch.cuda.synchronize()
     assert torch.equal(sel, sel0) and torch.equal(_bits(vals), _bits(vals0))
 
 
@@ -163,6 +184,57 @@ def test_densify_and_sample_kernels(cuda, v, k, d, dtype):
     rtol = 1e-6 if dtype == torch.float32 else 2.0**-7
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-6)
     assert torch.equal(_bits(cbsr_cuda.sample_cuda(z, sel)), _bits(cbsr_cuda.sample_plain(z, sel)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 1])
+@pytest.mark.parametrize("k", [1, 7, 32, 100, 600])
+def test_sample_kernel_exact(cuda, k, d, dtype):
+    """K3 against its plain version, bit for bit, on selectors with
+    duplicates and outside [0, d), d = 1 included: f32 takes a slot a
+    thread, bf16 4 slots a thread spaced by the block, so that rows * k
+    ends inside a thread's slots for most k here."""
+    v = 1001
+    gen = torch.Generator(device=cuda).manual_seed(k + d)
+    sel = torch.randint(-3, d + 3, (v, k), generator=gen, device=cuda, dtype=torch.int32)
+    z = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    out = cbsr_cuda.sample_cuda(z, sel)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (v, k)
+    assert torch.equal(_bits(out), _bits(cbsr_cuda.sample_plain(z, sel)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_kernel_on_topk_cbsr_selectors(cuda, dtype):
+    """K3 on K4's output, the training paths' input: distinct selectors,
+    ascending within a row."""
+    x = _rows(4097, 256, dtype, cuda)
+    _, sel = topk_cuda.topk_cbsr_cuda(x, 32)
+    z = torch.randn((4097, 256), generator=torch.Generator(device=cuda).manual_seed(9),
+                    device=cuda).to(dtype)
+    out = cbsr_cuda.sample_cuda(z, sel)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(cbsr_cuda.sample_plain(z, sel)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sample_kernel_unaligned(cuda, dtype):
+    """z and the selectors each one element past a 16-byte boundary: K3
+    asks no alignment, and still agrees bit for bit."""
+    v, k, d = 500, 32, 256
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    zf = torch.empty(v * d + 1, dtype=dtype, device=cuda)
+    sf = torch.empty(v * k + 1, dtype=torch.int32, device=cuda)
+    z, sel = zf[1:].view(v, d), sf[1:].view(v, k)
+    z.copy_(torch.randn((v, d), generator=gen, device=cuda).to(dtype))
+    sel.copy_(torch.randint(-1, d + 1, (v, k), generator=gen, device=cuda, dtype=torch.int32))
+    assert z.data_ptr() % 16 and sel.data_ptr() % 16
+    out = cbsr_cuda.sample_cuda(z, sel)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(cbsr_cuda.sample_plain(z, sel)))
 
 
 def _sequential_densify(vals, sel, d):

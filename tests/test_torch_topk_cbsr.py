@@ -54,6 +54,37 @@ def test_plain_matches_pallas(k, d, dtype):
     np.testing.assert_array_equal(_bits(vals.numpy()), _bits(vals_ref))
 
 
+def _hi16_tie_rows(d: int, seed: int) -> np.ndarray:
+    """f32 rows whose values share their top 16 bits but differ below: a
+    whole row (positive and negative), exactly 32 and 33 of a row, and a
+    row whose shared top halves straddle the k-th place with ties below
+    them too (as chip_smoke's tie rows); then normal rows. Not rounded to
+    bf16, so the f32 search's low-half branches see them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((V, d)).astype(np.float32)
+    j = np.arange(d, dtype=np.float64)
+    x[0] = 1.0 + j * 2.0**-20
+    x[1] = -1.0 - j * 2.0**-20
+    for r, m in ((2, 32), (3, 33)):
+        x[r] = 0.0
+        x[r, :m] = 1.0 + j[:m] * 2.0**-20
+    x[4] *= 0.1
+    x[4, :10] = 5.0
+    x[4, 10:40] = 3.0 + (j[:30] % 7) * 2.0**-20
+    return x
+
+
+@pytest.mark.parametrize("k", [8, 32, 33])
+def test_plain_matches_pallas_hi16_ties(k):
+    """float32 rows sharing their top 16 bits: the plain version against the
+    Pallas kernel, selectors equal and values bit for bit."""
+    x = _hi16_tie_rows(256, seed=k)
+    vals_ref, sel_ref = tp._topk_pallas_raw(jnp.asarray(x), k, True)
+    vals, sel = topk_cbsr_plain(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(sel.numpy(), np.asarray(sel_ref))
+    np.testing.assert_array_equal(_bits(vals.numpy()), _bits(vals_ref))
+
+
 def test_signed_zero_row():
     """[5, -0.0, -1, -2, ...] with k=2: vals [5, +0.0], sel [0, 1]."""
     x = np.concatenate([[5.0, -0.0], -np.arange(1, 127, dtype=np.float32)])[None].astype(np.float32)
