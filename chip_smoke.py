@@ -8,13 +8,19 @@ its plain PyTorch version at the main path's shapes, runs the op
 `maxk_spgemm` on full-scale synthetic reddit against its plain path, then
 trains MaxK-SAGE (4×256, k=32, dropout 0.5, lr 0.01 — the reference's
 reddit launch) on full-scale synthetic reddit for 10 epochs through the
-port's `train()`. Then the row-partitioned path: at a small size against
-the single-device path (SAGE, GCN, GIN), and 5 epochs of the same
+port's `train()`, and GNNRes (4×256) for 3 epochs on the same graph. Then
+the row-partitioned path: at a small size against the single-device path
+(SAGE, GCN, GIN, and ogbn-proteins, whose gathered ROC-AUC must equal the
+single-device one on the same logits), and 5 epochs of the same
 full-width training through `parallel.train.train_sharded`, one rank per
 card (NCCL). Then the benchmark path, through the entry points of
 `maxk_tpu_torch.bench`: the `bench.py` record on the same reddit graph,
 the kernel suite on the five training graphs (validated), the MaxK probe
-(K1, K4, K8), the brick probe (K5) and the microbenchmarks (K6, K7).
+(K1, K4, K8), the brick probe (K5) and the microbenchmarks (K6, K7). Then
+the accuracy path: the ten golden rows (`train.golden.run_golden` on the
+card, each at or above its floor but the ROADMAP C rows), and
+ogbn-proteins ×1.0 with the published launch (3×256, k=32) for 3 epochs
+with ROC-AUC eval.
 Before the paths, every kernel is held against its plain version at its
 path's shapes, and timed beside its bound and, where one exists, the
 PyTorch library call that computes the same function; the CBSR densify
@@ -46,6 +52,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 DIM, K, LAYERS, EPOCHS = 256, 32, 4, 10
 SHARDED_EPOCHS = 5
+GNN_EPOCHS = PROTEINS_EPOCHS = 3
 BRICK_V, BRICK_E = 32768, 1_000_000  # probe_bricks' default graph
 TIMED = 20  # launches per kernel timing
 ROUNDS = 5  # rounds of the launch-path and K7 timings
@@ -596,38 +603,75 @@ def phase_small_slice():
     require(rel <= 1e-3, f"small slice: CUDA and CPU losses differ by {rel}")
 
 
-def phase_sharded_small():
+def phase_sharded_small(wrappers: dict) -> dict:
     """3 steps at the small size for SAGE, GCN and GIN: the single-device
     path on the CPU (plain versions) and on the card, and the sharded path
     at world size 1 on the card (K4, NCCL collectives, maxk_spgemm), from
-    the same parameters: the losses must agree."""
+    the same parameters: the losses must agree. Then ogbn-proteins at a
+    small scale the same way, whose sharded eval ranks the all-gathered
+    rows for ROC-AUC (`gathered_rocauc`): it must equal the single-device
+    `rocauc` on the same logits, bit for bit. Returns the kernel launches of the proteins case, counted from
+    0 (the sharded path: K4, K2, K3)."""
+    import torch
+
     from maxk_tpu_torch.data.datasets import load_dataset
     from maxk_tpu_torch.parallel.mesh import destroy_mesh, free_tcp_init_method, init_mesh
-    from maxk_tpu_torch.parallel.train import train_sharded
+    from maxk_tpu_torch.parallel.train import gathered_rocauc, train_sharded
     from maxk_tpu_torch.train.config import TrainConfig
     from maxk_tpu_torch.train.loop import train
+    from maxk_tpu_torch.train.metrics import rocauc
 
     data = load_dataset("reddit", scale=0.002, seed=123)
+    proteins = load_dataset("ogbn-proteins", scale=0.01, seed=123, feat_snr=0.15,
+                            graph_kind="sbm")
     mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
+    launches = {}
     try:
-        for model in ("sage", "gcn", "gin"):
+        for model, d in (("sage", data), ("gcn", data), ("gin", data), ("sage", proteins)):
             losses = {}
             for device in ("cpu", "cuda"):
-                cfg = TrainConfig(dataset="reddit", model=model, epochs=3, hidden_dim=64,
+                cfg = TrainConfig(dataset=d.name, model=model, epochs=3, hidden_dim=64,
                                   hidden_layers=2, maxk=8, dropout=0.0, lr=0.01, device=device)
-                losses[device] = train(cfg, data, warmup_epochs=3).losses
-            losses["sharded_cuda"] = train_sharded(cfg, data, mesh, warmup_epochs=3).losses
+                losses[device] = train(cfg, d, warmup_epochs=3).losses
+            if d is proteins:
+                for fn in wrappers.values():
+                    fn.launches = 0
+            state = train_sharded(cfg, d, mesh, warmup_epochs=3)
+            losses["sharded_cuda"] = state.losses
             # as in phase_small_slice: a top-k near-tie that the summation
             # order flips moves one row of V
             rel = {name: max(abs(a - b) / abs(b) for a, b in zip(ls, losses["cpu"]))
                    for name, ls in losses.items() if name != "cpu"}
-            emit("sharded_small", model=model, world_size=1, nodes=data.csr.num_nodes,
-                 losses=losses, max_rel_diff_vs_cpu=rel, rtol=1e-3)
+            extra = {}
+            if d is proteins:
+                # one forward's logits (another forward's would differ in
+                # their last bits: atomics); at world size 1 the gathered
+                # rows are this rank's, unpadded
+                with torch.no_grad():
+                    logits = state.model(state.graph, state.feats, train=False)
+                sharded = gathered_rocauc(logits, state.labels, state.masks, mesh)
+                single = [rocauc(logits, state.labels, m) for m in state.masks]
+                launches = {name: fn.launches for name, fn in wrappers.items()}
+                extra = dict(sharded_rocauc=[float(x) for x in sharded],
+                             single_rocauc=[float(x) for x in single], launches=launches)
+                require(all(torch.equal(a, b) for a, b in zip(sharded, single)),
+                        f"sharded proteins: sharded ROC-AUC {extra['sharded_rocauc']} != "
+                        f"single-device {extra['single_rocauc']} on the same logits")
+                require(all(0.0 < x < 1.0 for x in extra["sharded_rocauc"]),
+                        f"sharded proteins: ROC-AUC {extra['sharded_rocauc']} outside (0, 1)")
+                for name in ("topk_cbsr", "cbsr_densify", "cbsr_sample"):
+                    require(launches[name] > 0,
+                            f"{name} was not launched on the sharded proteins case")
+            emit("sharded_small", model=model, dataset=d.name, world_size=1,
+                 nodes=d.csr.num_nodes, edges=d.csr.nnz, losses=losses,
+                 max_rel_diff_vs_cpu=rel, rtol=1e-3, **extra)
             require(all(math.isfinite(x) for ls in losses.values() for x in ls),
-                    f"sharded small {model}: non-finite losses {losses}")
-            require(max(rel.values()) <= 1e-3, f"sharded small {model}: losses differ by {rel}")
+                    f"sharded small {model} {d.name}: non-finite losses {losses}")
+            require(max(rel.values()) <= 1e-3,
+                    f"sharded small {model} {d.name}: losses differ by {rel}")
     finally:
         destroy_mesh(mesh)
+    return launches
 
 
 def phase_data():
@@ -786,6 +830,103 @@ def phase_sharded_train(data, wrappers: dict) -> dict:
     return launches
 
 
+def phase_gnn_res(data):
+    """GNNRes (4×256, norm "both", no MaxK, so no kernel of ours) for
+    GNN_EPOCHS epochs on the reddit ×1.0 graph: finite losses, and BatchNorm
+    running statistics that the steps moved."""
+    import torch
+
+    from maxk_tpu_torch.train.config import TrainConfig
+    from maxk_tpu_torch.train.loop import train
+
+    cfg = TrainConfig(dataset="reddit", model="gnn_res", epochs=GNN_EPOCHS, lr=0.01,
+                      hidden_dim=DIM, hidden_layers=LAYERS, dropout=0.5, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(cfg, data, warmup_epochs=1)
+    wall = time.perf_counter() - t0
+    bn = [getattr(state.model, f"bn{i}") for i in range(LAYERS)]
+    moved = all(not torch.equal(b.mean, torch.zeros_like(b.mean))
+                and not torch.equal(b.var, torch.ones_like(b.var)) for b in bn)
+    emit("gnn_res", nodes=data.csr.num_nodes, edges=data.csr.nnz, layers=LAYERS, hidden=DIM,
+         epochs=GNN_EPOCHS, losses=state.losses, step_ms=[1e3 * t for t in state.epoch_times],
+         step_ms_post_warmup=1e3 * sum(state.epoch_times) / len(state.epoch_times),
+         best_val=state.best_val, running_stats_moved=moved,
+         bn0_mean_abs=bn[0].mean.abs().mean().item(), bn0_var_mean=bn[0].var.mean().item(),
+         wall_s=wall, max_memory_allocated=torch.cuda.max_memory_allocated())
+    require(len(state.losses) == GNN_EPOCHS and all(math.isfinite(x) for x in state.losses),
+            f"gnn_res: non-finite or missing losses {state.losses}")
+    require(moved, "gnn_res: BatchNorm running statistics did not move")
+
+
+def phase_golden(k1) -> None:
+    """Every golden row (`train.golden.GOLDEN`, the published widths) through
+    `run_golden(gc, device="cuda")`: best validation value at or above its
+    floor, and the MaxK mask kernel `k1` launched on every MaxK row. A row
+    of `golden.KNOWN_MISSES` (each a ROADMAP C entry) may stay under its
+    floor; it is printed as such."""
+    from maxk_tpu_torch.train.golden import GOLDEN, KNOWN_MISSES, row_id, run_golden
+
+    missed = []
+    for gc in GOLDEN:
+        before = k1.launches
+        t0 = time.perf_counter()
+        best_val, best_test = run_golden(gc, device="cuda")
+        row = row_id(gc)
+        launches = k1.launches - before
+        ok = best_val >= gc.min_val
+        emit("golden", row=row, best_val=best_val, best_test=best_test, min_val=gc.min_val,
+             ok=ok, known_miss=row in KNOWN_MISSES, seconds=time.perf_counter() - t0,
+             maxk_mask_launches=launches, scale=gc.scale, hidden=gc.hidden_dim,
+             layers=gc.hidden_layers, epochs=gc.epochs)
+        if not ok and row not in KNOWN_MISSES:
+            missed.append(f"{row} {best_val:.4f} < {gc.min_val}")
+        if gc.nonlinear == "maxk":
+            require(launches > 0, f"golden {row}: maxk_mask was not launched")
+    require(not missed, f"golden rows under their floors: {missed}")
+
+
+def phase_proteins(k1) -> None:
+    """ogbn-proteins ×1.0 (DC-SBM, p_intra 0.8, snr 0.15, seed 123) with the
+    published launch (MaxK-SAGE 3×256, k=32, dropout 0.5, lr 0.01, ROC-AUC
+    eval) for PROTEINS_EPOCHS epochs on one card."""
+    import torch
+
+    from maxk_tpu_torch.data.datasets import load_dataset
+    from maxk_tpu_torch.train.config import TrainConfig
+    from maxk_tpu_torch.train.loop import evaluate, synchronize, train
+
+    t0 = time.perf_counter()
+    data = load_dataset("ogbn-proteins", scale=1.0, seed=123, feat_snr=0.15, graph_kind="sbm",
+                        sbm_p_intra=0.8)
+    generate_s = time.perf_counter() - t0
+    cfg = TrainConfig(dataset="ogbn-proteins", model="sage", epochs=PROTEINS_EPOCHS, lr=0.01,
+                      hidden_dim=DIM, hidden_layers=3, maxk=K, dropout=0.5, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    before = k1.launches
+    t0 = time.perf_counter()
+    state = train(cfg, data, warmup_epochs=1)
+    wall = time.perf_counter() - t0
+    launches = k1.launches - before
+    synchronize(state.device)
+    t1 = time.perf_counter()
+    rocaucs = evaluate(state, data)
+    eval_ms = 1e3 * (time.perf_counter() - t1)
+    emit("proteins", scale=1.0, nodes=data.csr.num_nodes, edges=data.csr.nnz,
+         features=data.feat_dim, classes=data.num_classes, generate_s=generate_s,
+         layers=3, hidden=DIM, k=K, dropout=0.5, lr=0.01, epochs=PROTEINS_EPOCHS,
+         losses=state.losses, step_ms=[1e3 * t for t in state.epoch_times],
+         step_ms_post_warmup=1e3 * sum(state.epoch_times) / len(state.epoch_times),
+         eval_ms=eval_ms, rocauc_train_val_test=list(rocaucs), best_val_rocauc=state.best_val,
+         wall_s=wall, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         maxk_mask_launches=launches)
+    require(len(state.losses) == PROTEINS_EPOCHS
+            and all(math.isfinite(x) for x in state.losses),
+            f"proteins: non-finite or missing losses {state.losses}")
+    require(all(0.0 < x < 1.0 for x in rocaucs), f"proteins: ROC-AUC {rocaucs} outside (0, 1)")
+    require(launches > 0, "proteins: maxk_mask was not launched")
+
+
 def main() -> int:
     import torch
 
@@ -848,7 +989,10 @@ def main() -> int:
         checks.update(phase_bench_kernels(bg, sched))
         phase_launch_path()
         phase_small_slice()
-        phase_sharded_small()
+        # the sharded proteins case (counts reset inside, read right after)
+        counts["sharded_proteins"] = phase_sharded_small(
+            {name: w[0] for name, w in wrappers.items()})
+        emit("launches", path="sharded_proteins", **counts["sharded_proteins"])
 
         # the single-device main path: the op, then training
         reset()
@@ -861,6 +1005,12 @@ def main() -> int:
             require(single[name] > 0, f"{name} was not launched on the main path")
         require(single["maxk_mask"] >= LAYERS * EPOCHS,
                 f"maxk_mask launched {single['maxk_mask']} < {LAYERS * EPOCHS} times")
+
+        # GNNRes: no kernel of ours on its path
+        torch.cuda.empty_cache()
+        reset()
+        phase_gnn_res(data)
+        read("gnn_res")
 
         # the row-partitioned path (counts reset inside, read right after)
         torch.cuda.empty_cache()
@@ -880,6 +1030,15 @@ def main() -> int:
         bench = read("bench")
         for name, n in bench.items():
             require(n > 0, f"{name} was not launched on the benchmark path")
+
+        # the accuracy path: the golden floors, then ogbn-proteins x1.0
+        torch.cuda.empty_cache()
+        reset()
+        phase_golden(topk_cuda.maxk_mask_cuda)
+        read("golden")
+        reset()
+        phase_proteins(topk_cuda.maxk_mask_cuda)
+        read("proteins")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,9 +7,13 @@ layout so each module has a counterpart of the same name:
                             brick schedules
     maxk_tpu_torch.ops      SpMM, maxk_spgemm, the MaxK mask, dispatch,
                             the brick SpMM and the row gathers
-    maxk_tpu_torch.models   MaxK-SAGE and the flax parameter importer
-    maxk_tpu_torch.train    config, loop, optimizer, metrics, logging
-    maxk_tpu_torch.data     dataset registry, synthetic graphs, binary IO
+    maxk_tpu_torch.models   MaxK-SAGE/GCN/GIN, their ReLU arms, GNNRes and
+                            the flax parameter importer
+    maxk_tpu_torch.train    config, loop, optimizer, metrics (ROC-AUC
+                            too), logging, the golden accuracy floors
+    maxk_tpu_torch.data     dataset registry, R-MAT and DC-SBM graphs,
+                            ogbn-proteins' edge features, binary IO and
+                            the export / check CLIs
     maxk_tpu_torch.parallel the row-partitioned multi-device path
     maxk_tpu_torch.bench    benchmark entry points (`python -m maxk_tpu_torch.bench`)
     maxk_tpu_torch/csrc/    hand-written CUDA kernels (built at first use)

@@ -4,8 +4,11 @@ Port of `maxk_tpu/data/datasets.py`. Each dataset resolves in order:
 
   1. real binaries under `$MAXK_TPU_DATA/<name>.indptr/.indices`
      (+ optional `.feat`/`.labels`/`.masks` sidecars), at scale 1.0;
-  2. a seeded R-MAT graph with the dataset's published (V, E, F, C) and
-     label regime (multilabel for yelp).
+  2. a seeded synthetic graph with the dataset's published (V, E, F, C)
+     and label regime (multilabel for yelp and ogbn-proteins): R-MAT
+     (`graph_kind="rmat"`, the kernel benchmarks) or a DC-SBM
+     (`graph_kind="sbm"`, the accuracy protocols). ogbn-proteins has edge
+     features only; its node features are the mean of its incident edges'.
 
 `scale` shrinks V and E proportionally (scale=1 is full size). Graphs are
 built on the CPU; `build_graph` moves them to the run's device.
@@ -20,7 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 from maxk_tpu_torch.data.io import load_graph_binary
-from maxk_tpu_torch.data.synthetic import planted_partition_data, rmat_graph
+from maxk_tpu_torch.data.proteins import node_features_from_edges
+from maxk_tpu_torch.data.synthetic import dcsbm_graph, planted_partition_data, rmat_graph
 from maxk_tpu_torch.sparse.csr import CSRGraph, add_self_loops
 
 
@@ -72,20 +76,17 @@ def load_dataset(
     seed: int = 123,
     feat_snr: float = 0.5,
     graph_kind: str = "rmat",
+    sbm_p_intra: float = 0.8,
 ) -> GraphData:
-    """Load or synthesize `name`. Only the R-MAT generator is ported."""
+    """Load or synthesize `name`.
+
+    `graph_kind` selects the synthetic generator (ignored for real
+    binaries): "rmat" (kernel benchmarks: the degree profile is what
+    matters) or "sbm" (accuracy protocols: DC-SBM homophily makes
+    aggregation useful; see `synthetic.dcsbm_graph`). `sbm_p_intra` is
+    the DC-SBM's intra-community edge fraction, the difficulty knob of the
+    accuracy protocol on dense graphs."""
     spec = DATASETS[name]
-    if name == "ogbn-proteins":
-        raise NotImplementedError(
-            "ogbn-proteins (edge-feature pathway and ROC-AUC) is not ported "
-            "yet: ROADMAP A9 (data/proteins) and A8 (metrics.rocauc)"
-        )
-    if graph_kind != "rmat":
-        if graph_kind == "sbm":
-            raise NotImplementedError(
-                "graph_kind='sbm' (dcsbm_graph) is not ported yet: ROADMAP A9"
-            )
-        raise ValueError(f"unknown graph_kind {graph_kind!r}")
     d = _data_dir()
     prefix = os.path.join(d, name) if d else None
     if scale == 1.0 and prefix and os.path.exists(prefix + ".indptr"):
@@ -96,11 +97,19 @@ def load_dataset(
     else:
         v = max(int(spec.num_nodes * scale), 64)
         e = max(int(spec.num_edges * scale), 256)
-        csr = rmat_graph(v, e, seed=seed)
+        labels_init = None
+        if graph_kind == "sbm":
+            csr, labels_init = dcsbm_graph(v, e, spec.num_classes, p_intra=sbm_p_intra, seed=seed)
+        elif graph_kind == "rmat":
+            csr = rmat_graph(v, e, seed=seed)
+        else:
+            raise ValueError(f"unknown graph_kind {graph_kind!r}")
         feats, labels, masks = planted_partition_data(
             csr, spec.feat_dim, spec.num_classes, seed=seed,
-            multilabel=spec.multilabel, feat_snr=feat_snr,
+            multilabel=spec.multilabel, feat_snr=feat_snr, labels_init=labels_init,
         )
+        if name == "ogbn-proteins":
+            feats = _proteins_node_features(csr, feats, seed)
     return GraphData(
         name=name,
         csr=csr,
@@ -112,6 +121,21 @@ def load_dataset(
         num_classes=spec.num_classes,
         multilabel=spec.multilabel,
     )
+
+
+def _proteins_node_features(csr: CSRGraph, feats: np.ndarray, seed: int) -> np.ndarray:
+    """The proteins regime has edge features only; node features are the
+    incident-edge sum over the clamped degree. The synthetic edge features
+    are coloured by their endpoints' planted features (`rng(seed + 1)`), so
+    the task stays learnable through the pathway."""
+    rows = csr.row_ids().numpy()
+    cols = csr.indices.numpy()
+    rng = np.random.default_rng(seed + 1)
+    edge_feats = 0.5 * (feats[rows] + feats[cols]) + 0.25 * rng.standard_normal(
+        (csr.nnz, feats.shape[1])
+    ).astype(np.float32)
+    deg = np.maximum(np.diff(csr.indptr.numpy()), 1)
+    return node_features_from_edges(csr, edge_feats.astype(np.float32)).numpy() / deg[:, None]
 
 
 def _load_sidecars(prefix: str, csr: CSRGraph, spec: DatasetSpec, seed: int):

@@ -1,9 +1,10 @@
 """Synthetic graph generators (seeded, vectorized numpy).
 
 A copy of `maxk_tpu/data/synthetic.py` (`rmat_edges`, `rmat_graph`,
-`planted_partition_data`), kept bit-equal on the same seeds: the JAX
-package's `__init__` imports jax, so the port cannot import it. Graphs
-come back as the port's `CSRGraph`.
+`dcsbm_graph`, `planted_partition_data`), kept bit-equal on the same
+seeds: the same `rng` calls in the same order. The JAX package's
+`__init__` imports jax, so the port cannot import it. Graphs come back as
+the port's `CSRGraph`.
 """
 
 from __future__ import annotations
@@ -61,6 +62,50 @@ def rmat_graph(num_nodes: int, num_edges: int, seed: int = 123):
     rr = np.concatenate([rows, cols, np.arange(v)])
     cc = np.concatenate([cols, rows, np.arange(v)])
     return csr_from_coo(rr, cc, v)
+
+
+def dcsbm_graph(
+    num_nodes: int,
+    num_edges: int,
+    num_blocks: int,
+    p_intra: float = 0.8,
+    power: float = 0.75,
+    seed: int = 123,
+):
+    """Degree-corrected stochastic block model: homophilous communities and
+    power-law hubs. Returns (CPU `CSRGraph`, block labels int32 (V,)).
+
+    The accuracy protocols (golden floors, k-sweep) train on it: R-MAT has
+    no community structure, so at reddit's density aggregation mixes
+    random-labelled neighbours; here neighbourhoods are label-correlated
+    while the degree profile stays power-law."""
+    from maxk_tpu_torch.sparse.csr import csr_from_coo
+
+    rng = np.random.default_rng(seed)
+    v = num_nodes
+    block = rng.integers(0, num_blocks, size=v)
+    # power-law node weights, randomly assigned (hubs in every block)
+    w = rng.permutation(np.arange(1, v + 1)).astype(np.float64) ** -power
+    w /= w.sum()
+    e0 = num_edges // 2 + num_edges % 2
+    src = rng.choice(v, size=e0, p=w)
+    intra = rng.random(e0) < p_intra
+    dst = np.empty(e0, dtype=np.int64)
+    n_glob = int((~intra).sum())
+    if n_glob:
+        dst[~intra] = rng.choice(v, size=n_glob, p=w)
+    for b in range(num_blocks):
+        sel = intra & (block[src] == b)
+        n = int(sel.sum())
+        if n == 0:
+            continue
+        nodes_b = np.flatnonzero(block == b)
+        wb = w[nodes_b]
+        wb /= wb.sum()
+        dst[sel] = rng.choice(nodes_b, size=n, p=wb)
+    rr = np.concatenate([src, dst, np.arange(v)])
+    cc = np.concatenate([dst, src, np.arange(v)])
+    return csr_from_coo(rr, cc, v), block.astype(np.int32)
 
 
 def planted_partition_data(

@@ -1,14 +1,15 @@
 """GNN models: `lin_in → L×[nonlinear → dropout → conv (→ LayerNorm)] → lin_out`.
 
-Port of `MaxKSAGE`, `MaxKGCN`, `MaxKGIN`, the ReLU aliases `GCN` and `GIN`,
-and `_GNNBase._nonlinear` (`maxk_tpu/models/models.py:43-171`). The
+Port of `MaxKSAGE`, `MaxKGCN`, `MaxKGIN`, the ReLU aliases `SAGE`, `GCN`
+and `GIN`, `GNNRes` and `_GNNBase._nonlinear`
+(`maxk_tpu/models/models.py:43-171`). The
 nonlinearity is "maxk" or "relu". With maxk on one device the activation
 is the mask kernel (`ops/topk_cuda.maxk_mask_fast`) and each layer
 aggregates the masked dense features with `spmm`. On a `ShardedGraph`
 it is the top-k → CBSR kernel (`maxk_cbsr_fast`) and its densify: the
 layer gets both, and aggregates through the compact `maxk_spgemm`, whose
-all_gather moves V·k values instead of V·D features. GNNRes is not
-ported yet.
+all_gather moves V·k values instead of V·D features. GNNRes is the
+residual GCN with flax's BatchNorm and no MaxK.
 """
 
 from __future__ import annotations
@@ -125,6 +126,12 @@ class MaxKGIN(_GNNBase):
     conv_cls = MaxKGINConv
 
 
+class SAGE(MaxKSAGE):
+    """The ReLU baseline arm of SAGE: same architecture, no CBSR path."""
+
+    default_nonlinear = "relu"
+
+
 class GCN(MaxKGCN):
     """The ReLU baseline arm of GCN: same architecture, no CBSR path."""
 
@@ -137,10 +144,69 @@ class GIN(MaxKGIN):
     default_nonlinear = "relu"
 
 
+class BatchNorm(nn.Module):
+    """flax's `nn.BatchNorm` over the node axis, at its defaults: momentum
+    0.99, epsilon 1e-5, the biased batch variance E[x²] − E[x]² (clamped
+    at 0) both to normalize and in the running average. `weight` and
+    `bias` are flax's `scale` and `bias`; the buffers `mean` and `var` are
+    its `batch_stats`. The mode is the `train` argument, not
+    `module.training`: batch statistics (and a running-average update)
+    when training, the running ones otherwise."""
+
+    def __init__(self, dim: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if train:
+            mean = x.mean(0)
+            var = (x.square().mean(0) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class GNNRes(_GNNBase):
+    """Residual GCN with BatchNorm: `lin_in → L×[GraphConv → BatchNorm →
+    dropout → relu(h) + x] → lin_out`, over the norm "both", with no MaxK
+    (`maxk_tpu/models/models.py:146-163`)."""
+
+    conv_cls = MaxKGraphConv
+
+    def __init__(self, in_dim: int, hidden_dim: int = 256, num_layers: int = 3, **kwargs):
+        kwargs["norm"] = False  # the stack's LayerNorm is not part of GNNRes
+        super().__init__(in_dim, hidden_dim=hidden_dim, num_layers=num_layers, **kwargs)
+        for i in range(num_layers):
+            self.add_module(f"bn{i}", BatchNorm(hidden_dim))
+
+    def forward(
+        self, graph, x: torch.Tensor, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        x = self.lin_in(x)
+        for i in range(self.num_layers):
+            h = getattr(self, f"conv{i}")(graph, x)
+            h = getattr(self, f"bn{i}")(h, train)
+            if train:
+                h = dropout(h, self.dropout, generator)
+            x = torch.relu(h) + x
+        return self.lin_out(x)
+
+
 _MODEL_NORMS = {
     "sage": (MaxKSAGE, "right"),
     "gcn": (MaxKGCN, "both"),
     "gin": (MaxKGIN, "none"),
+    "gnn_res": (GNNRes, "both"),
 }
 
 
@@ -159,8 +225,6 @@ def build_model(
     generator: Optional[torch.Generator] = None,
 ):
     """Returns (module, graph_norm_mode). The module is on the CPU."""
-    if model == "gnn_res":
-        raise NotImplementedError("--model gnn_res is not ported yet: ROADMAP A7 (GNNRes)")
     cls, gnorm = _MODEL_NORMS[model]
     module = cls(
         in_dim, hidden_dim=hidden_dim, num_layers=num_layers, out_dim=out_dim,

@@ -89,10 +89,11 @@ def _rank_main(rank, fn, world_size, device_type, init_method, queue, args):
     queue.put((rank, out))
 
 
-def run_ranks(fn, world_size: int, args=(), device_type: str = "cpu",
+def run_ranks(fn, world_size: int, args=(), device_type: str = "cuda",
               init_method: str | None = None, timeout: float | None = None) -> list:
     """Run `fn(mesh, *args)` on `world_size` spawned ranks; returns their
-    results in rank order. `fn` must be importable by module path and
+    results in rank order, one rank per CUDA device unless `device_type`
+    is "cpu" (gloo ranks). `fn` must be importable by module path and
     return a picklable value (numpy arrays, not tensors). A rank that
     raises fails the run; with `timeout` (seconds), so does a run that
     outlasts it, and every rank still alive is terminated."""

@@ -74,11 +74,11 @@ def tiny_data(multilabel: bool = False) -> GraphData:
                      num_classes=5, multilabel=multilabel)
 
 
-def train_case(mesh, runs, multilabel: bool = False) -> list:
+def train_case(mesh, runs, multilabel: bool = False, metric: str = "f1") -> list:
     """For each `(cfg_kwargs, state_dict or None)` of `runs`, `epochs`
     sharded train steps on `tiny_data(multilabel)` from that state: the
-    losses, the final parameters and the train/val/test accuracy (micro-F1
-    when multilabel)."""
+    losses, the final parameters and the train/val/test `metric` (accuracy,
+    micro-F1 when multilabel, or "rocauc")."""
     data = tiny_data(multilabel)
     out = []
     for kwargs, state_dict in runs:
@@ -93,7 +93,7 @@ def train_case(mesh, runs, multilabel: bool = False) -> list:
             float(step(state.graph, state.feats, state.labels, state.masks[0], state.generator)[0])
             for _ in range(cfg.epochs)
         ]
-        accs = make_sharded_eval_step(state.model, multilabel, mesh)(
+        accs = make_sharded_eval_step(state.model, multilabel, mesh, metric)(
             state.graph, state.feats, state.labels, state.masks
         )
         out.append({

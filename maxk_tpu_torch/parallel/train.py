@@ -5,8 +5,9 @@ Every rank holds the same parameters (made from `cfg.seed` on each rank),
 its row block of the graph and its rows of the node arrays. The
 aggregation collectives live inside the ops (`ops/spgemm.py`); this module
 adds the gradient all_reduce that makes the step correct, and the loss and
-metric all_reduces that report it. Every rank calls every collective in
-the same order, evaluation included; only rank 0 logs.
+metric all_reduces that report it (all_gathers for ROC-AUC, whose ranks
+are global). Every rank calls every collective in the same order,
+evaluation included; only rank 0 logs. GNNRes has no sharded path.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from maxk_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_grad
 from maxk_tpu_torch.parallel.mesh import Mesh
 from maxk_tpu_torch.parallel.shard import ShardedGraph, build_sharded_graph, shard_rows
 from maxk_tpu_torch.train.config import TrainConfig
-from maxk_tpu_torch.train.loop import model_from_config, per_node_loss, synchronize
+from maxk_tpu_torch.train.loop import dataset_metric, model_from_config, per_node_loss, synchronize
+from maxk_tpu_torch.train.metrics import rocauc
 from maxk_tpu_torch.train.optim import build_optimizer
 
 
@@ -39,6 +41,18 @@ def local_masked_loss(logits, labels, mask, multilabel: bool, mesh: Mesh) -> tor
     w = mask.to(torch.float32)
     count = all_reduce_sum(w.sum(), mesh)
     return (per_node_loss(logits, labels, multilabel) * w).sum() / count.clamp_min(1.0)
+
+
+def check_sharded_model(model: str) -> None:
+    """GNNRes has no row-partitioned path: its BatchNorm statistics would
+    need a cross-rank reduction, and the reference's sharded step applies
+    the parameters alone (`maxk_tpu/parallel/train.py:53-56`), so it has
+    none either."""
+    if model == "gnn_res":
+        raise NotImplementedError(
+            "--model gnn_res has no row-partitioned path (--mesh_shape): the "
+            "reference's sharded step carries no BatchNorm statistics; ROADMAP A7"
+        )
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -66,6 +80,7 @@ class ShardedState:
 def sharded_setup(cfg: TrainConfig, data: GraphData, mesh: Mesh) -> ShardedState:
     """Model, optimizer, this rank's graph blocks and node rows."""
     resolve_mode(cfg.kernel_mode)  # auto → segsum; hybrid and tiles raise
+    check_sharded_model(cfg.model)
     n, r = mesh.world_size, mesh.rank
     model, gnorm = model_from_config(cfg, data)
     model.to(mesh.device)
@@ -106,17 +121,25 @@ def make_sharded_train_step(model, optimizer, multilabel: bool, mesh: Mesh):
     return train_step
 
 
+def gathered_rocauc(logits, labels, masks, mesh: Mesh) -> tuple:
+    """The single-device `rocauc` of each mask over the all-gathered logits,
+    labels and mask rows (its ranks are global, so no count sums). The
+    masks travel as uint8: not every backend gathers bool."""
+    lg = all_gather_rows(logits, mesh)
+    lb = all_gather_rows(labels, mesh)
+    return tuple(rocauc(lg, lb, all_gather_rows(m.to(torch.uint8), mesh).bool()) for m in masks)
+
+
 def make_sharded_eval_step(model, multilabel: bool, mesh: Mesh, metric: str = "f1"):
-    """eval(graph, feats, labels, masks) -> one accuracy (micro-F1 when
-    multilabel) per mask, from all-reduced counts."""
-    if metric == "rocauc":
-        raise NotImplementedError(
-            "sharded ROC-AUC (ogbn-proteins) is not ported yet: ROADMAP A8 (metrics.rocauc)"
-        )
+    """eval(graph, feats, labels, masks) -> one metric value per mask:
+    accuracy (micro-F1 when multilabel) from all-reduced counts, or with
+    `metric="rocauc"` `gathered_rocauc`."""
 
     @torch.no_grad()
     def eval_step(graph, feats, labels, masks):
         logits = model(graph, feats, train=False)
+        if metric == "rocauc":
+            return gathered_rocauc(logits, labels, masks, mesh)
         sums = []
         for m in masks:
             w = m.to(torch.float32)
@@ -146,7 +169,7 @@ def train_sharded(
     """The sharded training loop on this rank; every rank calls it."""
     state = sharded_setup(cfg, data, mesh)
     train_step = make_sharded_train_step(state.model, state.optimizer, data.multilabel, mesh)
-    eval_step = make_sharded_eval_step(state.model, data.multilabel, mesh)
+    eval_step = make_sharded_eval_step(state.model, data.multilabel, mesh, dataset_metric(data))
     log = logger.info if logger else (lambda *_: None)
     # every rank joins this gather: the edge split is the step's balance
     edges = all_gather_rows(torch.tensor([state.graph.nnz], device=mesh.device), mesh).tolist()

@@ -2,7 +2,8 @@
 
 The same flags and validation messages as `train.py`, plus `--device`
 (default `cuda`). Flags the port accepts in the reference's sense but has
-not ported raise `NotImplementedError` naming the ROADMAP item.
+not ported raise `NotImplementedError` naming the ROADMAP item, as does
+`--model gnn_res` with `--mesh_shape` > 1, which the reference lacks too.
 """
 
 from __future__ import annotations
@@ -75,11 +76,11 @@ class TrainConfig:
         self._check_ported()
 
     def _check_ported(self) -> None:
-        if self.model == "gnn_res":
-            raise NotImplementedError(
-                "--model gnn_res is not ported yet: ROADMAP A7 (GNNRes)"
-            )
         resolve_mode(self.kernel_mode)
+        if self.mesh_shape > 1:
+            from maxk_tpu_torch.parallel.train import check_sharded_model
+
+            check_sharded_model(self.model)
         if self.enable_lookahead:
             raise NotImplementedError(
                 "--enable_lookahead is not ported yet: ROADMAP A8 (Lookahead)"
@@ -97,11 +98,6 @@ class TrainConfig:
             raise NotImplementedError(
                 "--validate_kernels is not ported yet: ROADMAP A11 "
                 "(bench/kernel_bench validation)"
-            )
-        if self.dataset == "ogbn-proteins":
-            raise NotImplementedError(
-                "ogbn-proteins (ROC-AUC, edge-feature pathway) is not ported "
-                "yet: ROADMAP A8 (metrics.rocauc) and A9 (data/proteins)"
             )
 
 

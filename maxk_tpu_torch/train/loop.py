@@ -1,8 +1,10 @@
 """Full-graph training loop — port of `maxk_tpu/train/loop.py` (single device).
 
 Full-graph forward, masked cross-entropy (BCE for multilabel), Adam, a
-full evaluation on the train/val/test masks every epoch, best-val
-tracking, and the mean epoch time after a warm-up. Step times are taken
+full evaluation on the train/val/test masks every epoch (ROC-AUC for
+ogbn-proteins, accuracy or micro-F1 otherwise), best-val tracking, and
+the mean epoch time after a warm-up. GNNRes's BatchNorm keeps its running
+statistics in buffers that the train step updates. Step times are taken
 on the host clock around a step that ends in a device synchronize.
 """
 
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,7 +22,7 @@ from maxk_tpu_torch.data.datasets import GraphData
 from maxk_tpu_torch.models.models import build_model
 from maxk_tpu_torch.sparse.graph import Graph, build_graph
 from maxk_tpu_torch.train.config import TrainConfig
-from maxk_tpu_torch.train.metrics import compute_micro_f1
+from maxk_tpu_torch.train.metrics import compute_micro_f1, rocauc
 from maxk_tpu_torch.train.optim import build_optimizer
 
 
@@ -113,11 +116,20 @@ def make_train_step(model, optimizer, multilabel: bool):
     return train_step
 
 
-def make_eval_step(model):
+def dataset_metric(data: GraphData) -> str:
+    """The evaluation metric of `data`: "rocauc" for ogbn-proteins (OGB's
+    metric for it), "f1" (accuracy or micro-F1) otherwise."""
+    return "rocauc" if data.name == "ogbn-proteins" else "f1"
+
+
+def make_eval_step(model, metric: str = "f1"):
+    """eval(graph, feats, labels, masks) -> one metric value per mask."""
+    fn = rocauc if metric == "rocauc" else compute_micro_f1
+
     @torch.no_grad()
     def eval_step(graph, feats, labels, masks):
         logits = model(graph, feats, train=False)
-        return tuple(compute_micro_f1(logits, labels, m) for m in masks)
+        return tuple(fn(logits, labels, m) for m in masks)
 
     return eval_step
 
@@ -132,9 +144,12 @@ def _device_arrays(data: GraphData, device: torch.device):
     return feats, labels, masks
 
 
-def evaluate(state: TrainState, data: GraphData):
+def evaluate(state: TrainState, data: GraphData, metric: Optional[str] = None):
+    """(train, val, test) metric; `metric` None: the dataset's."""
     feats, labels, masks = _device_arrays(data, state.device)
-    accs = make_eval_step(state.model)(state.graph, feats, labels, masks)
+    accs = make_eval_step(state.model, metric or dataset_metric(data))(
+        state.graph, feats, labels, masks
+    )
     return tuple(float(a) for a in accs)
 
 
@@ -149,7 +164,7 @@ def train(
     state = setup(cfg, data)
     device = state.device
     train_step = make_train_step(state.model, state.optimizer, data.multilabel)
-    eval_step = make_eval_step(state.model)
+    eval_step = make_eval_step(state.model, dataset_metric(data))
     feats, labels, masks = _device_arrays(data, device)
     log = logger.info if logger else (lambda *_: None)
 

@@ -1,4 +1,8 @@
-"""maxk_tpu_torch.data against maxk_tpu.data: bit-equal on the same seeds."""
+"""maxk_tpu_torch.data against maxk_tpu.data: bit-equal on the same seeds
+(ogbn-proteins' node features within rtol 1e-6, atol 1e-6); export writes
+the same bytes and check gives the same reports."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -71,7 +75,114 @@ def test_corrupt_binary_raises(tmp_path):
 
 
 def test_unported_datasets_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        load_dataset("ogbn-proteins", scale=0.001)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        load_dataset("reddit", scale=0.001, graph_kind="sbm")
+    """Every registered dataset and both generators load; a generator or a
+    dataset that neither package has raises as in the JAX package."""
+    with pytest.raises(ValueError, match="unknown graph_kind 'bogus'"):
+        jax_load_dataset("reddit", scale=0.001, graph_kind="bogus")
+    with pytest.raises(ValueError, match="unknown graph_kind 'bogus'"):
+        load_dataset("reddit", scale=0.001, graph_kind="bogus")
+    with pytest.raises(KeyError):
+        load_dataset("cora", scale=0.001)
+
+
+# ---------------------------------------------------------------------------
+# the DC-SBM generator, ogbn-proteins, export and check
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_dcsbm_graph_bit_equal(seed):
+    ref_csr, ref_blocks = jsyn.dcsbm_graph(600, 9000, 7, p_intra=0.7, seed=seed)
+    got_csr, got_blocks = tsyn.dcsbm_graph(600, 9000, 7, p_intra=0.7, seed=seed)
+    _assert_csr_equal(ref_csr, got_csr)
+    np.testing.assert_array_equal(got_blocks, ref_blocks)
+    assert got_blocks.dtype == np.int32
+
+
+def _assert_data_equal(ref, got, features_exact=True):
+    _assert_csr_equal(ref.csr, got.csr)
+    for name in ("labels", "train_mask", "val_mask", "test_mask"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name), err_msg=name)
+    assert got.features.dtype == ref.features.dtype
+    if features_exact:
+        np.testing.assert_array_equal(got.features, ref.features)
+    else:
+        # incident-edge sums: index_add_ and segment_sum may add in
+        # another order, so within f32 rounding
+        np.testing.assert_allclose(got.features, ref.features, rtol=1e-6, atol=1e-6)
+    assert (got.num_classes, got.multilabel) == (ref.num_classes, ref.multilabel)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("name,scale", [("reddit", 0.001), ("flickr", 0.005), ("yelp", 0.001)])
+def test_load_dataset_sbm_bit_equal(name, scale, seed):
+    kw = dict(scale=scale, seed=seed, feat_snr=0.15, graph_kind="sbm", sbm_p_intra=0.3)
+    _assert_data_equal(jax_load_dataset(name, **kw), load_dataset(name, **kw))
+
+
+@pytest.mark.parametrize("graph_kind", ["sbm", "rmat"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_load_dataset_proteins(seed, graph_kind):
+    """CSR, labels and masks bit-equal; the node features (edge-feature
+    means) within rtol 1e-6, atol 1e-6."""
+    kw = dict(scale=0.002, seed=seed, feat_snr=0.15, graph_kind=graph_kind)
+    ref, got = jax_load_dataset("ogbn-proteins", **kw), load_dataset("ogbn-proteins", **kw)
+    _assert_data_equal(ref, got, features_exact=False)
+    assert (got.feat_dim, got.num_classes, got.multilabel) == (8, 112, True)
+
+
+def test_proteins_edge_features_match_jax():
+    """`synthetic_edge_features` bit-equal; `node_features_from_edges`
+    within rtol 1e-6, atol 1e-6 (another summation order)."""
+    from maxk_tpu.data import proteins as jprot
+    from maxk_tpu_torch.data import proteins as tprot
+
+    jcsr, tcsr = jsyn.rmat_graph(300, 4000, 3), tsyn.rmat_graph(300, 4000, 3)
+    ef = tprot.synthetic_edge_features(tcsr, 8, seed=5)
+    np.testing.assert_array_equal(ef, jprot.synthetic_edge_features(jcsr, 8, seed=5))
+    got = tprot.node_features_from_edges(tcsr, ef)
+    assert got.dtype == torch.float32 and got.shape == (300, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jprot.node_features_from_edges(jcsr, ef)),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _files(prefix):
+    return {f.name[len(prefix.name):]: f.read_bytes()
+            for f in sorted(prefix.parent.iterdir()) if f.name.startswith(prefix.name + ".")}
+
+
+@pytest.mark.parametrize("name", ["flickr", "yelp"])
+def test_export_byte_identical(tmp_path, name):
+    """`python -m ...data.export` of both packages writes the same bytes:
+    graph, values, features, labels (int32, or f32 multilabel), masks."""
+    from maxk_tpu.data.export import main as jax_export
+    from maxk_tpu_torch.data.export import main as export
+
+    argv = ["--dataset", name, "--scale", "0.003", "--seed", "5"]
+    jax_export(argv + ["--out", str(tmp_path / "jax")])
+    (prefix,) = export(argv + ["--out", str(tmp_path / "torch")])
+    got = _files(Path(prefix))
+    ref = _files(tmp_path / "jax" / Path(prefix).name)
+    assert sorted(got) == [".feat", ".indices", ".indptr", ".labels", ".masks", ".values"]
+    assert sorted(ref) == sorted(got)
+    for ext, data in got.items():
+        assert data == ref[ext], ext
+
+
+def test_check_graph_reports_equal(tmp_path):
+    """`check_graph` on a DC-SBM and an R-MAT graph and on a binary read
+    back: the same report."""
+    from maxk_tpu.data.check import check_graph as jax_check
+    from maxk_tpu.data.check import main as jax_check_main
+    from maxk_tpu_torch.data.check import check_graph
+    from maxk_tpu_torch.data.check import main as check_main
+
+    graphs = [(jsyn.dcsbm_graph(300, 5000, 5, seed=2)[0], tsyn.dcsbm_graph(300, 5000, 5, seed=2)[0]),
+              (jsyn.rmat_graph(256, 3000, 9), tsyn.rmat_graph(256, 3000, 9))]
+    for jcsr, tcsr in graphs:
+        assert check_graph(tcsr) == jax_check(jcsr)
+    tio.save_graph_binary(str(tmp_path / "g"), [0, 2, 3, 3], [1, 2, 0])
+    ref = jax_check_main(["--binary", str(tmp_path / "g")])
+    got = check_main(["--binary", str(tmp_path / "g")])
+    assert got == ref
+    assert got["symmetric_structure"] is False and got["isolated_nodes"] == 1

@@ -1,6 +1,7 @@
-"""MaxK-SAGE, MaxK-GCN and MaxK-GIN in the port against the flax models,
-from imported parameters: logits and the gradient of the masked loss for
-every parameter, at 1e-5."""
+"""MaxK-SAGE, MaxK-GCN, MaxK-GIN and GNNRes in the port against the flax
+models, from imported parameters (and GNNRes's batch statistics): logits
+and the gradient of the masked loss for every parameter, at 1e-5; GNNRes's
+running mean and variance after a training forward, at 1e-5."""
 
 import jax
 import jax.numpy as jnp
@@ -166,8 +167,104 @@ def test_relu_aliases_default_to_relu():
     assert MaxKGCN(F_IN, hidden_dim=HIDDEN, num_layers=LAYERS).nonlinear == "maxk"
 
 
+def test_sage_alias_is_maxk_sage_with_relu(setting):
+    """`SAGE` (exported as the JAX package exports it) equals
+    `MaxKSAGE(nonlinear="relu")`: the same parameters, the same logits."""
+    from maxk_tpu_torch.models import SAGE, MaxKSAGE
+
+    s = setting
+    kw = dict(hidden_dim=HIDDEN, num_layers=LAYERS, out_dim=CLASSES, dropout=0.0)
+    alias = SAGE(F_IN, generator=torch.Generator().manual_seed(4), **kw)
+    relu = MaxKSAGE(F_IN, nonlinear="relu", generator=torch.Generator().manual_seed(4), **kw)
+    assert alias.nonlinear == relu.nonlinear == "relu"
+    for (n1, a), (n2, b) in zip(alias.state_dict().items(), relu.state_dict().items()):
+        assert n1 == n2 and torch.equal(a, b)
+    x = torch.from_numpy(s["feats"])
+    assert torch.equal(alias(s["tg"], x), relu(s["tg"], x))
+
+
 def test_unported_models_raise():
+    """GNNRes has no row-partitioned path (nor has the reference); an
+    unknown model is a KeyError."""
+    from maxk_tpu_torch.parallel.train import check_sharded_model
+
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        build_model("gnn_res", F_IN, CLASSES)
+        check_sharded_model("gnn_res")
+    check_sharded_model("sage")
     with pytest.raises(KeyError):
         build_model("nonsense", F_IN, CLASSES)
+
+
+@pytest.fixture(scope="module")
+def gnn_res():
+    """flax GNNRes (norm "both", dropout 0) at its init, with batch stats
+    moved off their zeros/ones by one training forward, and the port's
+    model built from the same params and batch stats."""
+    jcsr = jax_rmat_graph(200, 1500, seed=11)
+    feats, labels, masks = planted_partition_data(jcsr, F_IN, CLASSES, seed=11)
+    jmodel, gnorm = jax_build_model("gnn_res", CLASSES, hidden_dim=HIDDEN, num_layers=LAYERS,
+                                    dropout=0.0, kernel_mode="segsum")
+    assert gnorm == "both"
+    jg = jax_build_graph(jcsr, norm=gnorm, build_tiles=False)
+    key = jax.random.PRNGKey(0)
+    v = jmodel.init({"params": key, "dropout": key}, jg, jnp.asarray(feats))
+    _, upd = jmodel.apply(v, jg, jnp.asarray(feats) * 0.5 + 0.1, train=True,
+                          mutable=["batch_stats"])
+    params, stats = v["params"], upd["batch_stats"]
+    tg = build_graph(rmat_graph(200, 1500, seed=11), norm=gnorm)
+    return dict(jmodel=jmodel, jg=jg, tg=tg, feats=feats, labels=labels, mask=masks[0],
+                params=params, stats=stats)
+
+
+def _torch_gnn_res(g):
+    m, norm = build_model("gnn_res", F_IN, CLASSES, hidden_dim=HIDDEN, num_layers=LAYERS,
+                          dropout=0.0, generator=torch.Generator().manual_seed(0))
+    assert norm == "both"
+    m.load_state_dict(import_flax_params(jax.tree.map(np.asarray, g["params"]),
+                                         jax.tree.map(np.asarray, g["stats"])), strict=True)
+    return m
+
+
+def test_gnn_res_eval_logits_match(gnn_res):
+    """Eval mode normalizes with the running statistics: logits at 1e-5."""
+    g = gnn_res
+    ref = g["jmodel"].apply({"params": g["params"], "batch_stats": g["stats"]}, g["jg"],
+                            jnp.asarray(g["feats"]))
+    m = _torch_gnn_res(g)
+    before = {k: b.clone() for k, b in m.named_buffers()}
+    got = m(g["tg"], torch.from_numpy(g["feats"]))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    for k, b in m.named_buffers():
+        assert torch.equal(b, before[k]), k  # eval leaves the statistics alone
+
+
+def test_gnn_res_train_logits_grads_and_stats_match(gnn_res):
+    """Train mode normalizes with the biased batch statistics and moves the
+    running ones by momentum 0.99 — even with `module.eval()` set, since the
+    mode is the `train` argument: logits, every parameter's gradient of the
+    masked loss, and the running mean and variance at 1e-5."""
+    g = gnn_res
+    labels, mask = jnp.asarray(g["labels"]), jnp.asarray(g["mask"])
+
+    def loss_of(p):
+        logits, upd = g["jmodel"].apply({"params": p, "batch_stats": g["stats"]}, g["jg"],
+                                        jnp.asarray(g["feats"]), train=True,
+                                        mutable=["batch_stats"])
+        return jax_loss_fn(logits, labels, mask, False), (logits, upd["batch_stats"])
+
+    (_, (ref, ref_stats)), grads = jax.value_and_grad(loss_of, has_aux=True)(g["params"])
+    m = _torch_gnn_res(g).eval()
+    logits = m(g["tg"], torch.from_numpy(g["feats"]), train=True)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    _loss_fn(logits, torch.from_numpy(g["labels"]), torch.from_numpy(g["mask"]), False).backward()
+    ref_grads = import_flax_params(jax.tree.map(np.asarray, grads))
+    named = dict(m.named_parameters())
+    assert set(named) == set(ref_grads)
+    for name, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref_grads[name].numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    for i in range(LAYERS):
+        for stat in ("mean", "var"):
+            np.testing.assert_allclose(getattr(getattr(m, f"bn{i}"), stat).numpy(),
+                                       np.asarray(ref_stats[f"bn{i}"][stat]), rtol=1e-5, atol=1e-6,
+                                       err_msg=f"bn{i}.{stat}")

@@ -273,9 +273,36 @@ def test_sharded_multilabel_matches_single_device(tmp_path):
     np.testing.assert_allclose(got["accs"], evaluate(state, data), rtol=1e-5)
 
 
+def test_sharded_rocauc_matches_single_device(tmp_path):
+    """ogbn-proteins' metric on the row-partitioned path: the logits,
+    labels and mask rows all-gathered and ranked globally. 3 sharded steps
+    on 2 ranks against the port's single-device loop: losses at rtol 1e-5,
+    train/val/test ROC-AUC at atol 1e-6."""
+    from maxk_tpu_torch.train.config import TrainConfig
+    from maxk_tpu_torch.train.loop import evaluate, train
+
+    kwargs = dict(model="sage", epochs=3, lr=0.01, **TRAIN)
+    got = _spawn(tmp_path, testing.train_case, 2, [(kwargs, None)], True, "rocauc")[0][0]
+    data = testing.tiny_data(multilabel=True)
+    state = train(TrainConfig(dataset="tiny", device="cpu", **kwargs), data, warmup_epochs=3)
+    np.testing.assert_allclose(got["losses"], state.losses, rtol=1e-5)
+    ref = evaluate(state, data, metric="rocauc")
+    assert all(0.0 < x < 1.0 for x in ref)
+    np.testing.assert_allclose(got["accs"], ref, rtol=0, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # spawning and the CLI
 # ---------------------------------------------------------------------------
+
+
+def test_run_ranks_defaults_to_cuda_ranks(monkeypatch):
+    """With no `device_type`, `run_ranks` asks for one CUDA device a rank
+    and raises, naming both counts, where there is none: it never runs CPU
+    ranks unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices, found 0"):
+        run_ranks(testing.train_case, 2, ([],))
 
 
 def test_run_ranks_fails_on_a_rank_error_and_on_its_deadline(tmp_path):
@@ -284,7 +311,8 @@ def test_run_ranks_fails_on_a_rank_error_and_on_its_deadline(tmp_path):
     with pytest.raises(mp.ProcessRaisedException, match="nonsense"):
         _spawn(tmp_path, testing.train_case, 2, [(dict(model="nonsense"), None)])
     with pytest.raises(TimeoutError, match="outlasted"):
-        run_ranks(testing.train_case, 2, ([],), init_method=f"file://{tmp_path}/slow", timeout=0.2)
+        run_ranks(testing.train_case, 2, ([],), device_type="cpu",
+                  init_method=f"file://{tmp_path}/slow", timeout=0.2)
 
 
 def test_cli_mesh_shape_2_on_cpu_ranks(tmp_path):
