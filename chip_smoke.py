@@ -20,7 +20,16 @@ the kernel suite on the five training graphs (validated), the MaxK probe
 the accuracy path: the ten golden rows (`train.golden.run_golden` on the
 card, each at or above its floor but the ROADMAP C rows), and
 ogbn-proteins ×1.0 with the published launch (3×256, k=32) for 3 epochs
-with ROC-AUC eval.
+with ROC-AUC eval. Between GNNRes and the row-partitioned path, the
+edge-tile path on the same reddit graph: the tables (`host_tiles`: the C++
+builder's, the device builder's equal to them, C++ equal to numpy at
+scale 0.02), the tile SpMM against segsum and `torch.sparse.mm`
+(`tiles_op`: A and Aᵀ, f32 and bf16, one profiled call's device busy
+share; `maxk_spgemm` under tiles_scan; `tiles_xla` at scale 0.02), and 3
+epochs of the same training under `--kernel_mode tiles_scan` with the
+sharded small case at world size 1 (`tiles_train`). After the benchmark
+path, Lookahead with checkpoints and a resume through the CLI's entry,
+and `--evaluate` on its `best/` (`lookahead_ckpt`).
 Before the paths, every kernel is held against its plain version at its
 path's shapes, and timed beside its bound and, where one exists, the
 PyTorch library call that computes the same function; the CBSR densify
@@ -52,7 +61,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 DIM, K, LAYERS, EPOCHS = 256, 32, 4, 10
 SHARDED_EPOCHS = 5
-GNN_EPOCHS = PROTEINS_EPOCHS = 3
+GNN_EPOCHS = PROTEINS_EPOCHS = TILE_EPOCHS = 3
+TILE_FIELDS = ("block", "cols", "vals", "localrow")
 BRICK_V, BRICK_E = 32768, 1_000_000  # probe_bricks' default graph
 TIMED = 20  # launches per kernel timing
 ROUNDS = 5  # rounds of the launch-path and K7 timings
@@ -769,6 +779,284 @@ def phase_train(data):
     require(len(losses) == EPOCHS and all(math.isfinite(x) for x in losses),
             f"training: non-finite or missing losses {losses}")
     require(losses[-1] < losses[0], f"training: loss did not fall {losses}")
+    return losses, 1e3 * sum(state.epoch_times) / len(state.epoch_times)
+
+
+def device_busy(fn) -> dict:
+    """One call of `fn()` under `torch.profiler` (CPU and CUDA): its wall
+    time by CUDA events, the summed time of the device kernels the profiler
+    recorded, and their share of the wall (None when it recorded none).
+    The profiler's own host cost lowers the share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"profiled_wall_ms": wall, "kernel_ms": busy, "kernels": len(kernels),
+            "busy_share": busy / wall if kernels else None}
+
+
+def phase_host_tiles(data, graph):
+    """The edge-tile tables (R = 8, T = 256) of the reddit ×1.0 graph `graph`
+    (right norm, on the card): the host library's build seconds, each
+    table's host build seconds (`build_edge_tiles`, C++), tile count and
+    device bytes; `build_edge_tiles_device` on the card equal to them; and
+    the C++ builder equal to the numpy one at scale 0.02. Returns `graph`
+    with the tables."""
+    import torch
+
+    from maxk_tpu_torch.data.datasets import load_dataset
+    from maxk_tpu_torch.sparse import _native
+    from maxk_tpu_torch.sparse.csr import with_norm
+    from maxk_tpu_torch.sparse.graph import Graph
+    from maxk_tpu_torch.sparse.meta import (
+        build_edge_tiles,
+        build_edge_tiles_device,
+        build_edge_tiles_numpy,
+    )
+
+    t0 = time.perf_counter()
+    _native.build()
+    native_build_s = time.perf_counter() - t0
+    require(_native.available(), "sparse/_native: the host library did not load")
+    tables, rec = {}, {}
+    for name, csr in (("A", graph.csr), ("At", graph.csc)):
+        t0 = time.perf_counter()
+        tables[name] = build_edge_tiles(csr).to("cuda")
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dev = build_edge_tiles_device(csr)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t = tables[name]
+        equal = all(torch.equal(getattr(dev, f), getattr(t, f)) for f in TILE_FIELDS)
+        rec[name] = dict(num_tiles=t.num_tiles, device_bytes=t.nbytes,
+                         live_slot_share=csr.nnz / (t.num_tiles * t.edge_tile),
+                         host_build_s=host_s, device_build_s=dev_s, device_equal_host=equal)
+        require(equal, f"build_edge_tiles_device ({name}) differs from the host tables")
+        del dev
+    small = with_norm(load_dataset("reddit", scale=0.02, seed=123).csr, "right")
+    t0 = time.perf_counter()
+    nat = build_edge_tiles(small)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    npy = build_edge_tiles_numpy(small)
+    npy_s = time.perf_counter() - t0
+    same = all(torch.equal(getattr(nat, f), getattr(npy, f)) for f in TILE_FIELDS)
+    emit("host_tiles", nodes=graph.num_nodes, edges=graph.nnz, row_block=8, edge_tile=256,
+         native_build_s=native_build_s, tables=rec,
+         small={"scale": 0.02, "edges": small.nnz, "num_tiles": nat.num_tiles,
+                "native_s": nat_s, "numpy_s": npy_s, "native_equal_numpy": same})
+    require(same, "the C++ tile builder differs from the numpy one at scale 0.02")
+    return Graph(csr=graph.csr, csc=graph.csc, tiles=tables["A"], tiles_t=tables["At"])
+
+
+def phase_tiles_op(tgraph):
+    """On reddit ×1.0 with its tile tables `tgraph`: `spmm(mode="tiles_scan")`
+    over A and Aᵀ, f32 and bf16, against `spmm(mode="segsum")` and
+    `torch.sparse.mm` (a CSR tensor, the features' dtype) on the same
+    inputs, by CUDA events; `maxk_spgemm` under tiles_scan, forward and
+    backward at k = 32 with bf16 compute (K2, K3), against its segsum mode;
+    and `tiles_xla` at scale 0.02."""
+    import torch
+
+    from maxk_tpu_torch.data.datasets import load_dataset
+    from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
+    from maxk_tpu_torch.sparse.cbsr import CBSR
+    from maxk_tpu_torch.sparse.graph import Graph, build_graph
+
+    v = tgraph.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    spmms = []
+    for name, csr, tiles in (("A", tgraph.csr, tgraph.tiles), ("At", tgraph.csc, tgraph.tiles_t)):
+        view = Graph(csr=csr, csc=csr, tiles=tiles, tiles_t=tiles)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            x = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
+            y = spmm(view, x, mode="tiles_scan").float()
+            ref = spmm(view, x, mode="segsum").float()
+            rel = ((y - ref).abs().max() / ref.abs().max()).item()
+            del y, ref
+            # tiles_scan's time is mostly host launches, which move with the
+            # host: two runs of 3 calls a mode, in turns, the mean beside both
+            runs = {"tiles_scan": [], "segsum": []}
+            for order in (("tiles_scan", "segsum"), ("segsum", "tiles_scan")):
+                for m in order:
+                    runs[m].append(cuda_ms(lambda m=m: spmm(view, x, mode=m), 3))
+            t = {m: sum(r) / len(r) for m, r in runs.items()}
+            busy = {}
+            if name == "A" and dtype == torch.float32:
+                busy = {m: device_busy(lambda m=m: spmm(view, x, mode=m))
+                        for m in ("tiles_scan", "segsum")}
+            a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(), csr.values.to(dtype),
+                                        (v, v))
+            try:
+                lib = cuda_ms(lambda: torch.sparse.mm(a, x), 3)
+            except (NotImplementedError, RuntimeError) as e:  # the library's gap
+                lib = f"{type(e).__name__}: {e}"[:200]
+            del a, x
+            # f32: both sum in f32 in another order; bf16: both sum in f32
+            # and round once, so one bf16 ulp of the largest magnitude
+            tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+            spmms.append(dict(operand=name, dtype=tag, tiles_scan_ms=t["tiles_scan"],
+                              segsum_ms=t["segsum"], runs_ms=runs, sparse_mm_ms=lib,
+                              tiles_over_segsum=t["tiles_scan"] / t["segsum"],
+                              max_rel_diff=rel, tol=tol, profile=busy))
+            require(rel <= tol, f"spmm tiles_scan {name} {tag}: {rel} from segsum > {tol}")
+
+    vals = torch.randn((v, K), generator=gen, device="cuda")
+    sel = torch.randint(0, DIM, (v, K), generator=gen, device="cuda", dtype=torch.int32)
+    ct = torch.randn((v, DIM), generator=gen, device="cuda")
+    bf16 = torch.bfloat16
+
+    def fwd_bwd(mode):
+        va = vals.detach().requires_grad_(True)
+        y = maxk_spgemm(tgraph, CBSR(va, sel), dim=DIM, mode=mode, compute_dtype=bf16)
+        torch.vdot(y.flatten(), ct.flatten()).backward()
+        return y, va.grad
+
+    out = {m: fwd_bwd(m) for m in ("tiles_scan", "segsum")}
+    (y, dv), (y0, dv0) = out["tiles_scan"], out["segsum"]
+    rel_y = ((y - y0).abs().max() / y0.abs().max()).item()
+    rel_d = ((dv - dv0).abs().max() / dv0.abs().max()).item()
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(dv).all())
+    del out, y, dv, y0, dv0
+    t = {}
+    for m in ("tiles_scan", "segsum"):
+        t[f"{m}_fwd_ms"] = cuda_ms(
+            lambda m=m: maxk_spgemm(tgraph, CBSR(vals, sel), dim=DIM, mode=m, compute_dtype=bf16), 3)
+        t[f"{m}_fwd_bwd_ms"] = cuda_ms(lambda m=m: fwd_bwd(m), 3)
+    tol = 1e-2  # as phase_op: both sum in f32 and round once to bf16
+    op = dict(k=K, dim=DIM, compute_dtype="bfloat16", rel_diff_fwd=rel_y, rel_diff_grad=rel_d,
+              tol=tol, finite=finite, **t)
+    require(finite and rel_y <= tol and rel_d <= tol,
+            f"maxk_spgemm tiles_scan vs segsum: {rel_y}, {rel_d} > {tol}")
+    del vals, sel, ct
+
+    small = load_dataset("reddit", scale=0.02, seed=123)
+    sg = build_graph(small.csr, norm="right", build_tiles=True, device="cuda")
+    x = torch.randn((sg.num_nodes, DIM), generator=gen, device="cuda")
+    y = spmm(sg, x, mode="tiles_xla")
+    ref = spmm(sg, x, mode="segsum")
+    rel = ((y - ref).abs().max() / ref.abs().max()).item()
+    xla = dict(scale=0.02, nodes=sg.num_nodes, edges=sg.nnz, num_tiles=sg.tiles.num_tiles,
+               max_rel_diff=rel, tol=1e-5, tiles_xla_ms=cuda_ms(lambda: spmm(sg, x, mode="tiles_xla"), 3),
+               segsum_ms=cuda_ms(lambda: spmm(sg, x, mode="segsum"), 3))
+    emit("tiles_op", nodes=v, edges=tgraph.nnz, dim=DIM, spmm=spmms, maxk_spgemm=op,
+         tiles_xla=xla)
+    require(rel <= 1e-5, f"spmm tiles_xla at scale 0.02: {rel} from segsum > 1e-5")
+
+
+def phase_tiles_train(data, segsum_losses, segsum_step_ms):
+    """MaxK-SAGE 4×256, k=32, dropout 0.5, lr 0.01 on reddit ×1.0 under
+    `--kernel_mode tiles_scan` for TILE_EPOCHS epochs (K1 in every layer, the
+    tile SpMM its aggregation): the step beside the segsum step of the train
+    phase, and the losses against that run's first epochs (the same
+    parameters and dropout masks; the sums differ in order). Then the
+    sharded small case at world size 1 under tiles_scan (K4, K2, K3 over
+    the rank's tile tables) against the single-device path on the CPU."""
+    import torch
+
+    from maxk_tpu_torch.data.datasets import load_dataset
+    from maxk_tpu_torch.parallel.mesh import destroy_mesh, free_tcp_init_method, init_mesh
+    from maxk_tpu_torch.parallel.train import train_sharded
+    from maxk_tpu_torch.train.config import TrainConfig
+    from maxk_tpu_torch.train.loop import train
+
+    cfg = TrainConfig(dataset="reddit", model="sage", epochs=TILE_EPOCHS, lr=0.01,
+                      hidden_dim=DIM, hidden_layers=LAYERS, maxk=K, dropout=0.5,
+                      kernel_mode="tiles_scan", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(cfg, data, warmup_epochs=1)
+    wall = time.perf_counter() - t0
+    losses = state.losses
+    step = 1e3 * sum(state.epoch_times) / len(state.epoch_times)
+    ref = segsum_losses[:TILE_EPOCHS]
+    # a top-k near-tie that the summation order flips moves one row of V
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    tiles = state.graph.tiles
+    emit("tiles_train", nodes=data.csr.num_nodes, edges=data.csr.nnz, layers=LAYERS, hidden=DIM,
+         k=K, dropout=0.5, lr=0.01, epochs=TILE_EPOCHS, kernel_mode="tiles_scan",
+         losses=losses, segsum_losses=ref, max_rel_diff=rel, rtol=1e-3,
+         step_ms=[1e3 * t for t in state.epoch_times], step_ms_post_warmup=step,
+         segsum_step_ms_post_warmup=segsum_step_ms, step_over_segsum=step / segsum_step_ms,
+         num_tiles=tiles.num_tiles, tables_bytes=tiles.nbytes + state.graph.tiles_t.nbytes,
+         wall_s=wall, max_memory_allocated=torch.cuda.max_memory_allocated())
+    require(len(losses) == TILE_EPOCHS and all(math.isfinite(x) for x in losses),
+            f"tiles training: non-finite or missing losses {losses}")
+    require(rel <= 1e-3, f"tiles training: losses {losses} differ from segsum's {ref} by {rel}")
+    del state
+
+    small = load_dataset("reddit", scale=0.002, seed=123)
+    args = dict(dataset="reddit", epochs=3, hidden_dim=64, hidden_layers=2, maxk=8, dropout=0.0,
+                lr=0.01)
+    cpu = train(TrainConfig(device="cpu", **args), small, warmup_epochs=3).losses
+    mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
+    try:
+        sharded = train_sharded(TrainConfig(device="cuda", kernel_mode="tiles_scan", **args),
+                                small, mesh, warmup_epochs=3)
+    finally:
+        destroy_mesh(mesh)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sharded.losses, cpu))
+    emit("tiles_sharded_small", world_size=1, kernel_mode="tiles_scan",
+         nodes=small.csr.num_nodes, edges=small.csr.nnz,
+         fwd_tiles=sharded.graph.fwd_tiles.num_tiles, bwd_tiles=sharded.graph.bwd_tiles.num_tiles,
+         losses=sharded.losses, cpu_segsum_losses=cpu, max_rel_diff=rel, rtol=1e-3)
+    require(rel <= 1e-3, f"sharded tiles_scan: losses differ from the CPU's by {rel}")
+
+
+def phase_lookahead_ckpt():
+    """Through `python -m maxk_tpu_torch`'s entry (`__main__.main`), on the
+    card: MaxK-SAGE 4×256, k=32, dropout 0.5 with Lookahead (k = 2) on
+    reddit ×0.02 for 6 epochs with `--checkpoint_every 3`; the same cut
+    after 3 epochs and run again to 6, which resumes from `ckpt_2`: its
+    losses against the uninterrupted run's last 3 (rtol 1e-3: segsum's
+    atomics change the sums' last bits from run to run). Then `--evaluate`
+    on the uninterrupted run's `best/`: its validation value against the
+    logged best, within two validation nodes (the atomics may flip an
+    argmax)."""
+    import tempfile
+
+    from maxk_tpu_torch.__main__ import main as cli
+    from maxk_tpu_torch.data.datasets import load_dataset
+
+    common = ["--device", "cuda", "--dataset", "reddit", "--data_scale", "0.02",
+              "--hidden_layers", str(LAYERS), "--hidden_dim", str(DIM), "--maxk", str(K),
+              "--dropout", "0.5", "--lr", "0.01", "--enable_lookahead", "--w_lookahead", "2",
+              "--checkpoint_every", "3"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        whole = cli(common + ["--epochs", "6", "--path", f"{tmp}/whole"])
+        cli(common + ["--epochs", "3", "--path", f"{tmp}/cut"])
+        resumed = cli(common + ["--epochs", "6", "--path", f"{tmp}/cut"])
+        exp = Path(tmp) / "whole" / "reddit_seed97" / "sage_maxk"
+        tr, va, te = cli(common + ["--epochs", "6", "--path", f"{tmp}/eval",
+                                   "--evaluate", str(exp / "best")])
+        wall = time.perf_counter() - t0
+        layout = sorted(p.name for p in exp.iterdir() if p.is_dir())
+    n_val = int(load_dataset("reddit", scale=0.02, seed=123).val_mask.sum())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, whole.losses[3:]))
+    emit("lookahead_ckpt", scale=0.02, layers=LAYERS, hidden=DIM, k=K, lookahead_k=2,
+         checkpoint_every=3, layout=layout, losses=whole.losses, resumed_losses=resumed.losses,
+         max_rel_diff=rel, rtol=1e-3, best_val=whole.best_val, evaluate_val=va,
+         evaluate_train_test=[tr, te], val_nodes=n_val, wall_s=wall)
+    require(layout == ["best", "ckpt_2", "ckpt_5"], f"checkpoint layout {layout}")
+    require(len(resumed.losses) == 3 and rel <= 1e-3,
+            f"resumed losses {resumed.losses} against {whole.losses[3:]}: {rel}")
+    require(abs(va - whole.best_val) <= 2.0 / n_val,
+            f"--evaluate best/: val {va} against the logged best {whole.best_val}")
 
 
 def sharded_train_rank(mesh, wrappers: dict, data=None) -> dict:
@@ -997,9 +1285,8 @@ def main() -> int:
         # the single-device main path: the op, then training
         reset()
         phase_op(graph)
-        del graph
         torch.cuda.empty_cache()
-        phase_train(data)
+        segsum_losses, segsum_step = phase_train(data)
         single = read("single_device")
         for name in ("maxk_mask", "cbsr_densify", "cbsr_sample"):
             require(single[name] > 0, f"{name} was not launched on the main path")
@@ -1011,6 +1298,19 @@ def main() -> int:
         reset()
         phase_gnn_res(data)
         read("gnn_res")
+
+        # the edge-tile path: the tables, the op, then training under tiles_scan
+        torch.cuda.empty_cache()
+        tgraph = phase_host_tiles(data, graph)
+        del graph
+        reset()
+        phase_tiles_op(tgraph)
+        del tgraph
+        torch.cuda.empty_cache()
+        phase_tiles_train(data, segsum_losses, segsum_step)
+        tiles = read("tiles")
+        for name in ("maxk_mask", "cbsr_densify", "cbsr_sample"):
+            require(tiles[name] > 0, f"{name} was not launched on the tile path")
 
         # the row-partitioned path (counts reset inside, read right after)
         torch.cuda.empty_cache()
@@ -1030,6 +1330,13 @@ def main() -> int:
         bench = read("bench")
         for name, n in bench.items():
             require(n > 0, f"{name} was not launched on the benchmark path")
+
+        # Lookahead, checkpoints and resume, through the CLI's entry
+        torch.cuda.empty_cache()
+        reset()
+        phase_lookahead_ckpt()
+        ckpt = read("lookahead_ckpt")
+        require(ckpt["maxk_mask"] > 0, "maxk_mask was not launched on the checkpoint path")
 
         # the accuracy path: the golden floors, then ogbn-proteins x1.0
         torch.cuda.empty_cache()

@@ -17,8 +17,10 @@ Prints one JSON line on stdout, `{"metric", "value", "unit",
 "vs_baseline"}`, with the forward's live edges per second against the
 same A100 estimate as `bench.py` (4.0 Gnnz/s, see its docstring);
 everything else goes to stderr. Scale 0 means 1.0 on a card and 0.02 with
-`--device cpu`. `auto` resolves to segsum; `hybrid`, `tiles_*` and
-`pallas` raise (`ops/dispatch.resolve_mode`).
+`--device cpu`. `auto` resolves to segsum; `tiles_xla` and `tiles_scan`
+run the edge-tile SpMMs (their tables built with the graph); `hybrid` and
+`pallas` raise (`ops/dispatch.resolve_mode`). The dense baseline stays
+segsum, as the reference's does off the TPU.
 
 The graph is the port's host `data.synthetic.rmat_graph(v, e, seed=123)`,
 the call `load_dataset` makes, so at reddit × 1.0 it is the training
@@ -48,7 +50,7 @@ def run_bench(csr, k: int = 32, dim: int = 256, mode: str = "auto", device="cuda
     """Time the arms on the raw (unnormalized) CSR `csr`; returns the JSON
     record. `label` names the graph in the metric."""
     from maxk_tpu_torch.bench.micro import timeit
-    from maxk_tpu_torch.ops.dispatch import resolve_mode
+    from maxk_tpu_torch.ops.dispatch import TILE_MODES, resolve_mode
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
     from maxk_tpu_torch.sparse.cbsr import CBSR, cbsr_densify
     from maxk_tpu_torch.sparse.graph import build_graph
@@ -57,7 +59,8 @@ def run_bench(csr, k: int = 32, dim: int = 256, mode: str = "auto", device="cuda
     device = resolve_device(device)
     mode = resolve_mode(mode).value
     # right norm breaks value symmetry, so the backward arm gets the real Aᵀ
-    graph = build_graph(csr, norm="right", symmetric=False, device=device)
+    graph = build_graph(csr, norm="right", symmetric=False, device=device,
+                        build_tiles=mode in TILE_MODES)
     v = graph.num_nodes
     e_real = int((graph.csr.values != 0).sum())
     bf16 = torch.bfloat16

@@ -18,8 +18,11 @@ against the plain path (plain densify + segment-sum SpMM) per k.
 
 Graphs: `--dir` loads `<name>.indptr/.indices` binaries; otherwise the
 port's host R-MAT at the dataset's size × `--scale` (the reference draws
-its instance on the device). `auto` resolves to segsum; the hybrid and
-tile modes, and their flags, are not ported (ROADMAP A12, A13).
+its instance on the device). `auto` resolves to segsum; `--mode
+tiles_xla|tiles_scan` runs the edge-tile SpMMs over tables built on the
+device. The baseline (library) arm is `tiles_scan` on a card, as the
+reference's is off the CPU, unless the mode is segsum (so under `auto`),
+and segsum on the CPU. The hybrid modes are not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -99,12 +102,13 @@ def _vdot_f32(a, b):
 
 def main(argv=None):
     from maxk_tpu_torch.bench.micro import timeit
-    from maxk_tpu_torch.ops.dispatch import resolve_mode
+    from maxk_tpu_torch.ops.dispatch import TILE_MODES, resolve_mode
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
     from maxk_tpu_torch.ops.topk_cuda import maxk_mask_fast
     from maxk_tpu_torch.sparse.cbsr import CBSR
     from maxk_tpu_torch.sparse.csr import with_norm
     from maxk_tpu_torch.sparse.graph import Graph
+    from maxk_tpu_torch.sparse.meta import build_edge_tiles_device
     from maxk_tpu_torch.train.loop import resolve_device
 
     p = argparse.ArgumentParser()
@@ -124,7 +128,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     mode = resolve_mode(args.mode).value
-    base_mode = "segsum"  # the library arm: tiles are not ported (ROADMAP A12)
+    # the library arm: plain PyTorch over the tile schedule on a card, as
+    # the reference's cuSPARSE role (`kernels/main.cu`) off the CPU
+    base_mode = "segsum" if mode == "segsum" or device.type == "cpu" else "tiles_scan"
     bf16 = torch.bfloat16
 
     def rand(shape, seed, dtype=torch.float32):
@@ -142,7 +148,9 @@ def main(argv=None):
         g = with_norm(g, "right").to(device)
         # the backward arms run A, not Aᵀ, as the reference suite's do
         # (`kernel_bench.py:271`): the same work, and no transpose to build
-        graph = Graph(csr=g, csc=g)
+        tiled = mode in TILE_MODES or base_mode == "tiles_scan"
+        tiles = build_edge_tiles_device(g) if tiled else None
+        graph = Graph(csr=g, csc=g, tiles=tiles, tiles_t=tiles)
         v = g.num_nodes
         e_real = int((g.values != 0).sum())
         x_dense = rand((v, args.dim), 123)

@@ -16,8 +16,10 @@ place of the time). The kernel's line gives the rate of the product's
 CSR and X read once, Y written once, at the H100's published rates); the
 schedule line gives the heaviest kernel block's share of the live slots.
 Returns the numbers by name. `probe(g, sched, ...)` does the same on a
-graph and schedule already built. `--tiles` (the edge-tile arm) is not
-ported: ROADMAP A12.
+graph and schedule already built. `--tiles` adds the edge-tile arm
+(`probe_tiles`): `spmm_tiles_scan` over the tables of
+`build_edge_tiles_device`, held against `spmm_segsum` and timed beside the
+brick kernel.
 """
 
 from __future__ import annotations
@@ -112,6 +114,33 @@ def probe(g, sched, dim: int = 256, dtype: str = "float32", validate: bool = Tru
     return out
 
 
+def probe_tiles(g, dim: int = 256, dtype: str = "float32", bricks_s: float = 0.0) -> dict:
+    """`spmm_tiles_scan` over the edge tiles of `g` built on its device, on
+    the probe's features: its error against `spmm_segsum` relative to
+    max|ref|, the tables' build time on the host clock, and its time
+    beside the brick kernel's `bricks_s`."""
+    from maxk_tpu_torch.bench.micro import rand, timeit
+    from maxk_tpu_torch.ops.spmm_xla import spmm_segsum, spmm_tiles_scan
+    from maxk_tpu_torch.sparse.meta import build_edge_tiles_device
+
+    t0 = time.perf_counter()
+    tiles = build_edge_tiles_device(g)
+    if g.indptr.is_cuda:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x = rand((g.num_nodes, dim), getattr(torch, dtype), seed=0, device=g.indptr.device)
+    ref = spmm_segsum(g, x.float())
+    err = float((spmm_tiles_scan(tiles, x).float() - ref).abs().max()) / max(
+        float(ref.abs().max()), 1e-6)
+    del ref
+    tt = timeit(spmm_tiles_scan, tiles, x)
+    log(f"tiles_scan: {tt*1e3:.4f} ms  {g.nnz/tt/1e9:.3f} Gnnz/s  "
+        f"({tt/bricks_s:.1f}x the bricks' time; {tiles.num_tiles} tiles built in {build_s:.3f} s, "
+        f"max_rel vs segsum {err:.2e})")
+    return {"tiles_scan_s": tt, "tiles_build_s": build_s, "tiles_num": tiles.num_tiles,
+            "tiles_max_rel": err}
+
+
 def main(argv=None) -> dict:
     from maxk_tpu_torch.data.synthetic import rmat_graph
     from maxk_tpu_torch.sparse.bricks import build_bricks
@@ -124,12 +153,9 @@ def main(argv=None) -> dict:
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--validate", action="store_true", default=True)
     p.add_argument("--no-validate", dest="validate", action="store_false")
-    p.add_argument("--tiles", action="store_true", help="edge-tile arm (not ported)")
+    p.add_argument("--tiles", action="store_true", help="add the edge-tile arm (tiles_scan)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.tiles:
-        raise NotImplementedError("probe_bricks --tiles: the edge-tile SpMM is not ported yet "
-                                  "(ROADMAP A12)")
     device = resolve_device(args.device)
 
     t0 = time.perf_counter()
@@ -138,7 +164,11 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     sched = build_bricks(g)
     log(f"schedule: {time.perf_counter() - t0:.1f} s")
-    return probe(g.to(device), sched.to(device), args.dim, args.dtype, args.validate)
+    g = g.to(device)
+    out = probe(g, sched.to(device), args.dim, args.dtype, args.validate)
+    if args.tiles:
+        out.update(probe_tiles(g, args.dim, args.dtype, out["bricks_s"]))
+    return out
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """SpMM implementation selection.
 
-Port of `maxk_tpu/ops/dispatch.py`. The port has one production SpMM so
-far, the edge-chunked gather + index_add_ of `ops/spmm_xla.py`: AUTO
-resolves to SEGSUM, and every other mode raises. PALLAS raises for the
-reference's reason (`maxk_tpu/ops/spgemm.py:105-114`): the brick SpMM is a
-benchmark kernel, not a production one. The others name the ROADMAP item
-that ports them.
+Port of `maxk_tpu/ops/dispatch.py`. The port's SpMMs are the edge-chunked
+gather + index_add_ (SEGSUM) and the edge-tile SpMMs (TILES_XLA, the
+one-shot form; TILES_SCAN, the chunked one) of `ops/spmm_xla.py`. AUTO
+resolves to SEGSUM: the reference picks TILES_SCAN on a TPU only, and the
+port keeps SEGSUM on CUDA until a run on the card shows that the tiles win.
+PALLAS raises for the reference's reason (`maxk_tpu/ops/spgemm.py:
+105-114`): the brick SpMM is a benchmark kernel, not a production one. The
+strip-hybrid modes name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -23,18 +25,17 @@ class KernelMode(str, enum.Enum):
     SEGSUM = "segsum"
 
 
-_NOT_PORTED = {
-    KernelMode.HYBRID: "the strip-hybrid SpMM: ROADMAP A13",
-    KernelMode.HYBRID_INT8: "the int8 strip-hybrid SpMM: ROADMAP A13",
-    KernelMode.TILES_XLA: "the edge-tile SpMM: ROADMAP A12",
-    KernelMode.TILES_SCAN: "the edge-tile SpMM: ROADMAP A12",
-}
+TILE_MODES = (KernelMode.TILES_XLA, KernelMode.TILES_SCAN)
 
 
-def resolve_mode(mode) -> KernelMode:
+def resolve_mode(mode, has_tiles: bool = False) -> KernelMode:
+    """The SpMM that `mode` runs. AUTO is SEGSUM whether or not the graph
+    carries tile tables (`has_tiles`, the reference's argument)."""
     mode = KernelMode(mode)
     if mode in (KernelMode.AUTO, KernelMode.SEGSUM):
         return KernelMode.SEGSUM
+    if mode in TILE_MODES:
+        return mode
     if mode == KernelMode.PALLAS:
         raise NotImplementedError(
             "kernel_mode='pallas' has no production kernel, as in the reference: "
@@ -44,5 +45,5 @@ def resolve_mode(mode) -> KernelMode:
             "kernel_mode='auto' (segsum)"
         )
     raise NotImplementedError(
-        f"kernel_mode={mode.value!r} is not ported yet ({_NOT_PORTED[mode]})"
+        f"kernel_mode={mode.value!r} is not ported yet (the strip-hybrid SpMM: ROADMAP A13)"
     )

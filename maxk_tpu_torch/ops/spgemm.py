@@ -1,7 +1,7 @@
 """Core aggregation ops with their backward rules.
 
-Port of `maxk_tpu/ops/spgemm.py` (the segsum branches), as autograd
-Functions:
+Port of `maxk_tpu/ops/spgemm.py` (the segsum and edge-tile branches), as
+autograd Functions:
 
   spmm:        forward  Y = A @ x,  backward  dx = Aᵀ @ g
   maxk_spgemm: forward  Y = A @ densify(CBSR)
@@ -21,6 +21,11 @@ scatters the (Vp, D) partials of the transposed block; maxk_spgemm
 all_gathers the compressed CBSR (values cast to `compute_dtype` first),
 densifies and aggregates the local block, and its backward samples the
 reduce-scattered cotangent at the local selectors.
+
+The SpMM is `spmm_segsum` under AUTO and SEGSUM; under TILES_XLA and
+TILES_SCAN it runs over the graph's edge-tile tables (`build_graph(
+build_tiles=True)`, `build_sharded_graph(build_tiles=True)`), which must
+exist. A rank's block always takes `spmm_tiles_scan`, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,19 +36,37 @@ import torch
 
 from maxk_tpu_torch.ops.cbsr_cuda import densify, sample
 from maxk_tpu_torch.ops.dispatch import KernelMode, resolve_mode
-from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
+from maxk_tpu_torch.ops.spmm_xla import spmm_segsum, spmm_tiles_scan, spmm_tiles_xla
 from maxk_tpu_torch.parallel.collectives import all_gather_rows, reduce_scatter_rows
 from maxk_tpu_torch.parallel.shard import ShardedGraph
 from maxk_tpu_torch.sparse.cbsr import CBSR
 
 
+def _local_spmm(csr, tiles, x: torch.Tensor, mode: str, sharded: bool = False) -> torch.Tensor:
+    """A @ x for one operand: `csr`, or its tile tables `tiles` under the
+    tile modes (the scan on a rank's block, `sharded`)."""
+    resolved = resolve_mode(mode, tiles is not None)
+    if resolved == KernelMode.SEGSUM:
+        return spmm_segsum(csr, x)
+    if tiles is None:
+        raise ValueError(f"kernel_mode={mode!r} needs edge-tile tables: build the graph with "
+                         "build_tiles=True")
+    if resolved == KernelMode.TILES_XLA and not sharded:
+        return spmm_tiles_xla(tiles, x)
+    return spmm_tiles_scan(tiles, x)
+
+
 def _spmm_impl(graph, x: torch.Tensor, mode: str, transpose: bool) -> torch.Tensor:
-    resolve_mode(mode)  # SEGSUM is the only SpMM ported; others raise
     if isinstance(graph, ShardedGraph):
+        resolve_mode(mode)  # an unported mode raises before any collective
         if transpose:  # (Vp, D) partials → summed local rows
-            return reduce_scatter_rows(spmm_segsum(graph.bwd, x), graph.mesh)
-        return spmm_segsum(graph.fwd, all_gather_rows(x, graph.mesh))
-    return spmm_segsum(graph.csc if transpose else graph.csr, x)
+            z = _local_spmm(graph.bwd, graph.bwd_tiles, x, mode, sharded=True)
+            return reduce_scatter_rows(z, graph.mesh)
+        return _local_spmm(graph.fwd, graph.fwd_tiles, all_gather_rows(x, graph.mesh), mode,
+                           sharded=True)
+    if transpose:
+        return _local_spmm(graph.csc, graph.tiles_t, x, mode)
+    return _local_spmm(graph.csr, graph.tiles, x, mode)
 
 
 class _SpMM(torch.autograd.Function):
@@ -74,13 +97,15 @@ class _MaxKSpGEMM(torch.autograd.Function):
             # numbers without a (V, dim) tensor in the wider dtype (and,
             # sharded, gathers fewer bytes)
             vals = vals.to(compute_dtype)
-        resolve_mode(mode)
+        resolve_mode(mode)  # an unported mode raises before any collective
         if isinstance(graph, ShardedGraph):
             # gather the compressed features, not (Vp, dim) dense rows;
             # x is then whole, so the local block needs no second gather
             x = densify(all_gather_rows(vals, graph.mesh), all_gather_rows(sel, graph.mesh), dim)
-            return spmm_segsum(graph.fwd, x).to(ctx.vals_dtype)
-        return spmm_segsum(graph.csr, densify(vals, sel, dim)).to(ctx.vals_dtype)
+            y = _local_spmm(graph.fwd, graph.fwd_tiles, x, mode, sharded=True)
+        else:
+            y = _spmm_impl(graph, densify(vals, sel, dim), mode, transpose=False)
+        return y.to(ctx.vals_dtype)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,8 +1,8 @@
 """Row-partitioned graph sharding for multi-device aggregation.
 
 Port of `maxk_tpu/parallel/shard.py` (`ShardedGraph`, `build_sharded_graph`,
-`shard_rows`, `halo_stats`), without the edge-tile and strip-hybrid
-schedules. The scheme is the reference's:
+`shard_rows`, `halo_stats`), with the edge-tile schedules and without the
+strip hybrid. The scheme is the reference's:
 
   - adjacency rows are block-partitioned over the ranks: rank r owns rows
     [r·Vs, (r+1)·Vs) of A and of the node features, Vs = ceil(V/n), and
@@ -15,18 +15,20 @@ schedules. The scheme is the reference's:
     (Vp, D) partials and hands each rank its rows.
 
 Each rank holds only its own blocks. JAX pads every shard's edges to the
-largest shard's count because `shard_map` needs stacked arrays; the port
-needs no such padding.
+largest shard's count, and every shard's tile tables to the largest tile
+count with inert tiles, because `shard_map` needs stacked arrays; the port
+needs no such padding: a rank's tables are the reference's shard prefix.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from maxk_tpu_torch.sparse.csr import CSRGraph, _from_scipy, csr_to_scipy, with_norm
+from maxk_tpu_torch.sparse.meta import EDGE_TILE, ROW_BLOCK, EdgeTiles, build_edge_tiles
 
 
 @dataclass(frozen=True)
@@ -35,6 +37,7 @@ class ShardedGraph:
 
     fwd: rows [r·Vs, (r+1)·Vs) of A, global columns — (Vs, Vp)
     bwd: its transpose, global rows, local columns — (Vp, Vs)
+    fwd_tiles, bwd_tiles: their edge-tile tables, or None
     `mesh` is the rank's `parallel.mesh.Mesh`, whose collectives the
     aggregation ops call."""
 
@@ -44,6 +47,8 @@ class ShardedGraph:
     padded_nodes: int
     num_shards: int
     mesh: object
+    fwd_tiles: Optional[EdgeTiles] = None
+    bwd_tiles: Optional[EdgeTiles] = None
 
     @property
     def shard_nodes(self) -> int:
@@ -52,18 +57,6 @@ class ShardedGraph:
     @property
     def nnz(self) -> int:
         return self.fwd.nnz
-
-
-def _check_schedules(build_tiles: bool, hybrid: bool) -> None:
-    if build_tiles:
-        raise NotImplementedError(
-            "sharded edge-tile schedules (build_tiles=True) are not ported yet: ROADMAP A12"
-        )
-    if hybrid:
-        raise NotImplementedError(
-            "the sharded strip hybrid (hybrid=True, ShardedHybrid) is not ported "
-            "yet: ROADMAP A13"
-        )
 
 
 def _padded(csr: CSRGraph, num_shards: int, norm: str):
@@ -96,11 +89,24 @@ def build_sharded_graph(
     norm: str = "none",
     build_tiles: bool = False,
     hybrid: bool = False,
+    row_block: int = ROW_BLOCK,
+    edge_tile: int = EDGE_TILE,
 ) -> ShardedGraph:
-    """This rank's blocks of the normalized `csr` on the mesh's device."""
-    _check_schedules(build_tiles, hybrid)
+    """This rank's blocks of the normalized `csr` on the mesh's device;
+    with `build_tiles`, the edge-tile tables of both blocks (the forward's
+    Vs rows, the backward's Vp rows), built on the host from the rank's own
+    blocks."""
+    if hybrid:
+        raise NotImplementedError(
+            "the sharded strip hybrid (hybrid=True, ShardedHybrid) is not ported "
+            "yet: ROADMAP A13"
+        )
     n = mesh.world_size
     ((fwd, bwd),) = shard_blocks(csr, n, norm, ranks=[mesh.rank])
+    fwd_tiles = bwd_tiles = None
+    if build_tiles:
+        fwd_tiles = build_edge_tiles(fwd, row_block, edge_tile).to(mesh.device)
+        bwd_tiles = build_edge_tiles(bwd, row_block, edge_tile).to(mesh.device)
     v = csr.num_nodes
     return ShardedGraph(
         fwd=fwd.to(mesh.device),
@@ -109,6 +115,8 @@ def build_sharded_graph(
         padded_nodes=-(-v // n) * n,
         num_shards=n,
         mesh=mesh,
+        fwd_tiles=fwd_tiles,
+        bwd_tiles=bwd_tiles,
     )
 
 

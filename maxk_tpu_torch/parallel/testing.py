@@ -15,6 +15,7 @@ import torch
 from maxk_tpu_torch.data.datasets import GraphData
 from maxk_tpu_torch.data.synthetic import planted_partition_data, rmat_graph
 from maxk_tpu_torch.models.layers import aggregate
+from maxk_tpu_torch.ops.dispatch import TILE_MODES
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
 from maxk_tpu_torch.parallel.shard import build_sharded_graph, shard_rows
 from maxk_tpu_torch.parallel.train import (
@@ -31,18 +32,21 @@ def _local(mesh, a: np.ndarray, vs: int) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(shard_rows(a, mesh.world_size)[r * vs:(r + 1) * vs]))
 
 
-def ops_case(mesh, graph_args: tuple, norm: str, x, ct, vals, sel, xdrop) -> dict:
+def ops_case(mesh, graph_args: tuple, norm: str, x, ct, vals, sel, xdrop,
+             mode: str = "segsum") -> dict:
     """spmm and maxk_spgemm, forward and gradient, and the compact sharded
     aggregation of post-dropout features, on this rank's rows of
-    `rmat_graph(*graph_args)`; with the receive bytes of each op's
+    `rmat_graph(*graph_args)`, under kernel mode `mode` (the tile modes
+    build the rank's tile tables); with the receive bytes of each op's
     forward + backward."""
-    graph = build_sharded_graph(rmat_graph(*graph_args), mesh, norm=norm)
+    graph = build_sharded_graph(rmat_graph(*graph_args), mesh, norm=norm,
+                                build_tiles=mode in TILE_MODES)
     vs, d = graph.shard_nodes, x.shape[1]
     out = {}
 
     xt = _local(mesh, x, vs).requires_grad_(True)
     mesh.bytes.reset()
-    y = spmm(graph, xt, mode="segsum")
+    y = spmm(graph, xt, mode=mode)
     y.backward(_local(mesh, ct, vs))
     out.update(spmm_y=y.detach().numpy(), spmm_dx=xt.grad.numpy(),
                relu_recv=mesh.bytes.total_recv())
@@ -50,13 +54,13 @@ def ops_case(mesh, graph_args: tuple, norm: str, x, ct, vals, sel, xdrop) -> dic
     vt = _local(mesh, vals, vs).requires_grad_(True)
     st = _local(mesh, sel, vs)
     mesh.bytes.reset()
-    y = maxk_spgemm(graph, CBSR(vt, st), dim=d, mode="segsum")
+    y = maxk_spgemm(graph, CBSR(vt, st), dim=d, mode=mode)
     y.backward(_local(mesh, ct, vs))
     out.update(maxk_y=y.detach().numpy(), maxk_dvals=vt.grad.numpy(),
                maxk_recv=mesh.bytes.total_recv())
 
     with torch.no_grad():
-        agg = aggregate(graph, _local(mesh, xdrop, vs), "segsum", None,
+        agg = aggregate(graph, _local(mesh, xdrop, vs), mode, None,
                         CBSR(_local(mesh, vals, vs), st))
     out["agg"] = agg.numpy()
     return out

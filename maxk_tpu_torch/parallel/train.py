@@ -20,14 +20,20 @@ import numpy as np
 import torch
 
 from maxk_tpu_torch.data.datasets import GraphData
-from maxk_tpu_torch.ops.dispatch import resolve_mode
+from maxk_tpu_torch.ops.dispatch import TILE_MODES, resolve_mode
 from maxk_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_grads, all_reduce_sum
 from maxk_tpu_torch.parallel.mesh import Mesh
 from maxk_tpu_torch.parallel.shard import ShardedGraph, build_sharded_graph, shard_rows
 from maxk_tpu_torch.train.config import TrainConfig
-from maxk_tpu_torch.train.loop import dataset_metric, model_from_config, per_node_loss, synchronize
+from maxk_tpu_torch.train.loop import (
+    dataset_metric,
+    model_from_config,
+    optimizer_from_config,
+    per_node_loss,
+    synchronize,
+)
 from maxk_tpu_torch.train.metrics import rocauc
-from maxk_tpu_torch.train.optim import build_optimizer
+from maxk_tpu_torch.train.optim import Optimizer
 
 
 def local_masked_loss(logits, labels, mask, multilabel: bool, mesh: Mesh) -> torch.Tensor:
@@ -63,7 +69,7 @@ def rank_seed(seed: int, rank: int) -> int:
 @dataclass
 class ShardedState:
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optimizer
     graph: ShardedGraph
     generator: torch.Generator  # this rank's dropout masks, on its device
     mesh: Mesh
@@ -78,13 +84,18 @@ class ShardedState:
 
 
 def sharded_setup(cfg: TrainConfig, data: GraphData, mesh: Mesh) -> ShardedState:
-    """Model, optimizer, this rank's graph blocks and node rows."""
-    resolve_mode(cfg.kernel_mode)  # auto → segsum; hybrid and tiles raise
+    """Model, optimizer (Lookahead under `--enable_lookahead`), this rank's
+    graph blocks and node rows. The blocks' edge-tile tables are built
+    under the tile modes alone: AUTO runs segsum here, where the
+    reference's sharded AUTO runs the tiles (ROADMAP C)."""
+    resolve_mode(cfg.kernel_mode)  # auto → segsum; hybrid and pallas raise
     check_sharded_model(cfg.model)
     n, r = mesh.world_size, mesh.rank
     model, gnorm = model_from_config(cfg, data)
     model.to(mesh.device)
-    graph = build_sharded_graph(data.csr, mesh, norm=gnorm)
+    graph = build_sharded_graph(data.csr, mesh, norm=gnorm,
+                                build_tiles=cfg.kernel_mode in TILE_MODES,
+                                row_block=cfg.row_block, edge_tile=cfg.edge_tile)
     vs = graph.shard_nodes
 
     def rows(a, fill=0):
@@ -93,7 +104,7 @@ def sharded_setup(cfg: TrainConfig, data: GraphData, mesh: Mesh) -> ShardedState
     labels = data.labels.astype(np.float32 if data.multilabel else np.int64)
     return ShardedState(
         model=model,
-        optimizer=build_optimizer(model.parameters(), cfg.lr, cfg.weight_decay),
+        optimizer=optimizer_from_config(cfg, model),
         graph=graph,
         generator=torch.Generator(device=mesh.device).manual_seed(rank_seed(cfg.seed, r)),
         mesh=mesh,

@@ -2,8 +2,10 @@
 
 The same flags and validation messages as `train.py`, plus `--device`
 (default `cuda`). Flags the port accepts in the reference's sense but has
-not ported raise `NotImplementedError` naming the ROADMAP item, as does
-`--model gnn_res` with `--mesh_shape` > 1, which the reference lacks too.
+not ported (`--kernel_mode hybrid|hybrid_int8`, `--validate_kernels`)
+raise `NotImplementedError` naming the ROADMAP item, as do `--kernel_mode
+pallas` and `--model gnn_res` with `--mesh_shape` > 1, which the reference
+refuses or lacks too.
 """
 
 from __future__ import annotations
@@ -81,19 +83,6 @@ class TrainConfig:
             from maxk_tpu_torch.parallel.train import check_sharded_model
 
             check_sharded_model(self.model)
-        if self.enable_lookahead:
-            raise NotImplementedError(
-                "--enable_lookahead is not ported yet: ROADMAP A8 (Lookahead)"
-            )
-        for flag, on in (
-            ("--checkpoint_every", self.checkpoint_every > 0),
-            ("--evaluate", bool(self.evaluate)),
-            ("--save_model", self.save_model),
-        ):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} is not ported yet: ROADMAP A8 (checkpoint)"
-                )
         if self.validate_kernels:
             raise NotImplementedError(
                 "--validate_kernels is not ported yet: ROADMAP A11 "

@@ -1,11 +1,19 @@
 """Full-graph training loop — port of `maxk_tpu/train/loop.py` (single device).
 
-Full-graph forward, masked cross-entropy (BCE for multilabel), Adam, a
-full evaluation on the train/val/test masks every epoch (ROC-AUC for
-ogbn-proteins, accuracy or micro-F1 otherwise), best-val tracking, and
-the mean epoch time after a warm-up. GNNRes's BatchNorm keeps its running
-statistics in buffers that the train step updates. Step times are taken
-on the host clock around a step that ends in a device synchronize.
+Full-graph forward, masked cross-entropy (BCE for multilabel), Adam
+(with Lookahead under `--enable_lookahead`), a full evaluation on the
+train/val/test masks every epoch (ROC-AUC for ogbn-proteins, accuracy or
+micro-F1 otherwise), best-val tracking, and the mean epoch time after a
+warm-up. GNNRes's BatchNorm keeps its running statistics in buffers that
+the train step updates. Step times are taken on the host clock around a
+step that ends in a device synchronize.
+
+With a `checkpoint_dir`, `best/` is written on every improvement of the
+validation value, `ckpt_<epoch>` every `checkpoint_every` epochs, and a
+run with `checkpoint_every > 0` resumes from the latest `ckpt_<epoch>` at
+the next epoch (`train/checkpoint.py`). The dropout masks come from one
+generator whose state the checkpoint carries, so a resumed run draws the
+masks an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -20,10 +28,17 @@ import torch.nn.functional as F
 
 from maxk_tpu_torch.data.datasets import GraphData
 from maxk_tpu_torch.models.models import build_model
+from maxk_tpu_torch.ops.dispatch import TILE_MODES
 from maxk_tpu_torch.sparse.graph import Graph, build_graph
+from maxk_tpu_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_best,
+    save_checkpoint,
+)
 from maxk_tpu_torch.train.config import TrainConfig
 from maxk_tpu_torch.train.metrics import compute_micro_f1, rocauc
-from maxk_tpu_torch.train.optim import build_optimizer
+from maxk_tpu_torch.train.optim import Optimizer, build_optimizer
 
 
 def resolve_device(name: str) -> torch.device:
@@ -46,7 +61,7 @@ def synchronize(device: torch.device) -> None:
 @dataclass
 class TrainState:
     model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optimizer
     graph: Graph
     generator: torch.Generator  # dropout masks, on the run's device
     device: torch.device
@@ -87,14 +102,24 @@ def model_from_config(cfg: TrainConfig, data: GraphData):
     )
 
 
+def optimizer_from_config(cfg: TrainConfig, model: torch.nn.Module) -> Optimizer:
+    """The run's optimizer over `model`'s parameters, where they now lie."""
+    return build_optimizer(model.parameters(), cfg.lr, cfg.weight_decay, cfg.enable_lookahead,
+                           lookahead_k=cfg.w_lookahead)
+
+
 def setup(cfg: TrainConfig, data: GraphData) -> TrainState:
+    """Model, optimizer, graph and dropout generator on the run's device.
+    The edge-tile tables are built under the tile modes alone."""
     device = resolve_device(cfg.device)
     model, gnorm = model_from_config(cfg, data)
     model.to(device)
-    graph = build_graph(data.csr, norm=gnorm, device=device)
+    graph = build_graph(data.csr, norm=gnorm, device=device,
+                        build_tiles=cfg.kernel_mode in TILE_MODES,
+                        row_block=cfg.row_block, edge_tile=cfg.edge_tile)
     return TrainState(
         model=model,
-        optimizer=build_optimizer(model.parameters(), cfg.lr, cfg.weight_decay),
+        optimizer=optimizer_from_config(cfg, model),
         graph=graph,
         generator=torch.Generator(device=device).manual_seed(cfg.seed),
         device=device,
@@ -153,22 +178,55 @@ def evaluate(state: TrainState, data: GraphData, metric: Optional[str] = None):
     return tuple(float(a) for a in accs)
 
 
+def checkpoint_payload(state: TrainState, epoch: int) -> dict:
+    """What a checkpoint holds after `epoch`: the model (BatchNorm buffers
+    included), the optimizer (Lookahead included), the epoch, the best
+    metrics and the dropout generator's state."""
+    return {
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "epoch": epoch,
+        "best_val": state.best_val,
+        "best_test": state.best_test,
+        "generator": state.generator.get_state(),
+    }
+
+
+def restore_state(state: TrainState, payload: dict) -> int:
+    """Load `payload` (`checkpoint_payload`) into `state`; returns the
+    epoch to resume at."""
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.generator.set_state(payload["generator"])
+    state.best_val, state.best_test = float(payload["best_val"]), float(payload["best_test"])
+    return int(payload["epoch"]) + 1
+
+
 def train(
     cfg: TrainConfig,
     data: GraphData,
     logger=None,
     writer=None,
     warmup_epochs: int = 10,
+    checkpoint_dir: str = "",
 ) -> TrainState:
-    """Run the training loop; returns the final state with best-val tracking."""
+    """Run the training loop; returns the final state with best-val
+    tracking. `checkpoint_dir`: where `best/` and `ckpt_<epoch>` go, and
+    with `cfg.checkpoint_every > 0` where the run resumes from."""
     state = setup(cfg, data)
     device = state.device
+    log = logger.info if logger else (lambda *_: None)
+    start_epoch = 0
+    if checkpoint_dir and cfg.checkpoint_every > 0:
+        path = latest_checkpoint(checkpoint_dir)
+        if path:
+            start_epoch = restore_state(state, restore_checkpoint(path))
+            log(f"resumed from {path} at epoch {start_epoch}")
     train_step = make_train_step(state.model, state.optimizer, data.multilabel)
     eval_step = make_eval_step(state.model, dataset_metric(data))
     feats, labels, masks = _device_arrays(data, device)
-    log = logger.info if logger else (lambda *_: None)
 
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         synchronize(device)
         t0 = time.perf_counter()
         loss, _ = train_step(state.graph, feats, labels, masks[0], state.generator)
@@ -190,6 +248,8 @@ def train(
         state.losses.append(loss)
         if va > state.best_val:
             state.best_val, state.best_test = va, te
+            if checkpoint_dir:
+                save_best(checkpoint_dir, checkpoint_payload(state, epoch))
         if writer is not None:
             writer.add_scalar("loss", loss, epoch)
             writer.add_scalar("train_acc", tr, epoch)
@@ -199,6 +259,8 @@ def train(
             f"epoch {epoch:05d} | loss {loss:.4f} | train {tr:.4f} "
             f"| val {va:.4f} | test {te:.4f} | {dt*1e3:.1f} ms"
         )
+        if checkpoint_dir and cfg.checkpoint_every > 0 and (epoch + 1) % cfg.checkpoint_every == 0:
+            save_checkpoint(checkpoint_dir, checkpoint_payload(state, epoch), step=epoch)
     if state.epoch_times:
         log(
             f"avg epoch time (post-warmup): "

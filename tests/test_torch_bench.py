@@ -180,3 +180,28 @@ def test_entry_points_default_to_the_card(entry):
             "ablate_topk_sample": ablate_topk_sample.main}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])
+
+
+def test_probe_bricks_tiles_arm_on_cpu():
+    """`probe_bricks --tiles`: spmm_tiles_scan over the device-built tile
+    tables, beside the brick kernel, within 1e-5 of segsum relative to
+    max|ref| (f32 sums in another order)."""
+    out = probe_bricks.main(["--device", "cpu", "--v", "700", "--e", "9000", "--dim", "64",
+                             "--tiles"])
+    assert out["tiles_num"] > 0 and out["tiles_scan_s"] > 0 and out["tiles_build_s"] > 0
+    assert out["tiles_max_rel"] <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["tiles_xla", "tiles_scan"])
+def test_kernel_bench_and_bench_take_the_tile_modes(mode, capsys):
+    """`kernel_bench --mode tiles_*` validates against the plain path; on the
+    CPU its library arm stays segsum. `python -m maxk_tpu_torch.bench --mode
+    tiles_*` prints its one record."""
+    from maxk_tpu_torch.bench import bench
+
+    recs = kernel_bench.main(["--device", "cpu", *TINY, "--mode", mode])
+    assert len(recs) == 1 and recs[0]["valid"]
+    assert (recs[0]["mode"], recs[0]["base_mode"]) == (mode, "segsum")
+    rec = bench.main(["--device", "cpu", "--scale", "0.002", "--mode", mode])
+    assert rec["metric"] == f"spmm_maxk fwd nnz/s (reddit x0.002, k=32, {mode}, cpu)"
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == rec

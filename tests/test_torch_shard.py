@@ -112,12 +112,40 @@ def test_shard_rows_and_halo_stats_match_jax():
             jshard.halo_stats(jax_rmat_graph(*GRAPH), n, k=16, s_cols=s_cols)
 
 
+def _fake_mesh(n, rank=0):
+    return type("M", (), {"world_size": n, "rank": rank, "device": torch.device("cpu")})()
+
+
 def test_unported_schedules_raise():
-    mesh = type("M", (), {"world_size": 2, "rank": 0, "device": torch.device("cpu")})()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tshard.build_sharded_graph(rmat_graph(*GRAPH), mesh, build_tiles=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tshard.build_sharded_graph(rmat_graph(*GRAPH), mesh, hybrid=True)
+        tshard.build_sharded_graph(rmat_graph(*GRAPH), _fake_mesh(2), hybrid=True)
+
+
+@pytest.mark.parametrize("norm", ["right", "none"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_tiles_are_the_jax_shard_prefix(n, norm):
+    """build_sharded_graph(build_tiles=True): each rank's forward (Vs rows)
+    and backward (Vp rows) tables equal the first NT rows of the JAX
+    package's stacked tables for that shard, bit for bit; the rows past NT,
+    its padding to TILE_PAD and to the largest shard, are inert (value 0,
+    column 0, local row 0, the last real tile's block)."""
+    ref = jshard.build_sharded_graph(jax_rmat_graph(*GRAPH), n, norm=norm, build_tiles=True,
+                                     row_block=8, edge_tile=64)
+    for r in range(n):
+        got = tshard.build_sharded_graph(rmat_graph(*GRAPH), _fake_mesh(n, r), norm=norm,
+                                         build_tiles=True, row_block=8, edge_tile=64)
+        for tt, stacked, rows in ((got.fwd_tiles, ref.fwd_tiles, ref.shard_nodes),
+                                  (got.bwd_tiles, ref.bwd_tiles, ref.padded_nodes)):
+            nt = tt.num_tiles
+            assert (tt.num_nodes, tt.num_row_blocks) == (rows, -(-rows // 8))
+            for f in ("block", "cols", "vals", "localrow"):
+                full = np.asarray(stacked[f][r])
+                np.testing.assert_array_equal(getattr(tt, f).numpy(), full[:nt], err_msg=f)
+                tail = full[nt:]
+                if f == "block":
+                    assert (tail == full[nt - 1]).all()
+                else:
+                    assert not tail.any()
 
 
 # ---------------------------------------------------------------------------

@@ -108,7 +108,25 @@ def test_build_graph_directed_is_not_symmetric():
 
 
 def test_build_graph_unported_schedules_raise(graphs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        build_graph(graphs[1], norm="right", build_tiles=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         build_graph(graphs[1], norm="right", hybrid=True)
+
+
+@pytest.mark.parametrize("norm", ["right", "both"])
+@pytest.mark.parametrize("device_builder", [False, True])
+def test_build_graph_tiles_match_jax(graphs, norm, device_builder):
+    """build_graph(build_tiles=True): the tables of A and Aᵀ are the JAX
+    package's first NT rows, bit for bit (its tables carry TILE_PAD
+    padding); a symmetric graph shares them. Without build_tiles, none."""
+    j, t = graphs
+    jg = jax_build_graph(j, norm=norm, build_tiles=True, row_block=8, edge_tile=64)
+    tg = build_graph(t, norm=norm, build_tiles=True, row_block=8, edge_tile=64,
+                     device_builder=device_builder)
+    assert (tg.tiles_t is tg.tiles) == (tg.csc is tg.csr) == (norm == "both")
+    for jt, tt in ((jg.tiles, tg.tiles), (jg.tiles_t, tg.tiles_t)):
+        nt = tt.num_tiles
+        assert (tt.row_block, tt.num_row_blocks, tt.num_nodes, tt.edge_tile) == \
+            (jt.row_block, jt.num_row_blocks, jt.num_nodes, jt.edge_tile)
+        for f in ("block", "cols", "vals", "localrow"):
+            np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(jt, f))[:nt])
+    assert build_graph(t, norm=norm).tiles is None

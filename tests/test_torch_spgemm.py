@@ -19,7 +19,8 @@ from maxk_tpu_torch.data.synthetic import rmat_graph
 from maxk_tpu_torch.ops import spgemm as tsp
 from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
 from maxk_tpu_torch.sparse.cbsr import CBSR
-from maxk_tpu_torch.sparse.graph import build_graph
+from maxk_tpu_torch.sparse.graph import Graph, build_graph
+from maxk_tpu_torch.sparse.meta import build_edge_tiles
 
 torch.set_num_threads(1)
 
@@ -101,8 +102,30 @@ def test_edge_chunks_do_not_change_the_sum(graphs):
         torch.testing.assert_close(spmm_segsum(tg.csr, x.double(), edge_chunk=chunk), ref)
 
 
-@pytest.mark.parametrize("mode", ["hybrid", "hybrid_int8", "pallas", "tiles_xla", "tiles_scan"])
+@pytest.mark.parametrize("mode", ["hybrid", "hybrid_int8", "pallas"])
 def test_unported_modes_raise(graphs, mode):
     _, tg = graphs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsp.spmm(tg, torch.zeros((tg.num_nodes, 4)), mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["tiles_xla", "tiles_scan"])
+def test_tile_modes_run_over_the_tables(graphs, mode):
+    """The tile modes need the graph's tile tables (a graph built without
+    them raises, naming build_tiles); with them, spmm and its gradient equal
+    segsum's to 1e-5 normwise (f32 sums in another order)."""
+    _, tg = graphs
+    with pytest.raises(ValueError, match="build_tiles=True"):
+        tsp.spmm(tg, torch.zeros((tg.num_nodes, 4)), mode=mode)
+    tiled = Graph(csr=tg.csr, csc=tg.csc, tiles=build_edge_tiles(tg.csr),
+                  tiles_t=build_edge_tiles(tg.csc))
+    x = torch.randn((tg.num_nodes, D), generator=torch.Generator().manual_seed(5))
+    g = torch.randn((tg.num_nodes, D), generator=torch.Generator().manual_seed(6))
+    grads = []
+    for graph, m in ((tg, "segsum"), (tiled, mode)):
+        xr = x.clone().requires_grad_(True)
+        y = tsp.spmm(graph, xr, mode=m)
+        y.backward(g)
+        grads.append((y.detach(), xr.grad))
+    _close(grads[1][0], grads[0][0], 1e-5)
+    _close(grads[1][1], grads[0][1], 1e-5)

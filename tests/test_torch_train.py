@@ -152,13 +152,7 @@ OUT_OF_SLICE = [
     (["--model", "gnn_res", "--mesh_shape", "2"], "ROADMAP A7"),
     (["--kernel_mode", "hybrid"], "ROADMAP A13"),
     (["--kernel_mode", "hybrid_int8"], "ROADMAP A13"),
-    (["--kernel_mode", "tiles_xla"], "ROADMAP A12"),
-    (["--kernel_mode", "tiles_scan"], "ROADMAP A12"),
     (["--kernel_mode", "pallas"], "ROADMAP B5"),
-    (["--enable_lookahead"], "ROADMAP A8"),
-    (["--checkpoint_every", "5"], "ROADMAP A8"),
-    (["--evaluate", "ckpt"], "ROADMAP A8"),
-    (["--save_model"], "ROADMAP A8"),
     (["--validate_kernels"], "ROADMAP A11"),
 ]
 
@@ -171,7 +165,12 @@ def test_out_of_slice_flags_raise(argv, item):
 
 
 @pytest.mark.parametrize("argv", [["--model", "gcn"], ["--model", "gin"], ["--mesh_shape", "2"],
-                                  ["--model", "gnn_res"], ["--dataset", "ogbn-proteins"]],
+                                  ["--model", "gnn_res"], ["--dataset", "ogbn-proteins"],
+                                  ["--kernel_mode", "tiles_xla"], ["--kernel_mode", "tiles_scan"],
+                                  ["--row_block", "4", "--edge_tile", "64"],
+                                  ["--enable_lookahead", "--w_lookahead", "3"],
+                                  ["--checkpoint_every", "5"], ["--evaluate", "ckpt"],
+                                  ["--save_model"]],
                          ids=lambda a: " ".join(a))
 def test_ported_flags_parse_as_in_jax(argv):
     ref, got = jcfg.parse_args(argv), tcfg.parse_args(argv)
