@@ -594,7 +594,8 @@ def phase_micro():
 
 def phase_small_slice():
     """3 training steps at a small size, on the card (kernels) and on the
-    CPU (plain versions), from the same seed: the losses must agree."""
+    CPU (plain versions), from the same seed, under segsum (where AUTO would
+    differ between the two): the losses must agree."""
     from maxk_tpu_torch.data.datasets import load_dataset
     from maxk_tpu_torch.train.config import TrainConfig
     from maxk_tpu_torch.train.loop import train
@@ -603,7 +604,7 @@ def phase_small_slice():
     losses = {}
     for device in ("cpu", "cuda"):
         cfg = TrainConfig(dataset="reddit", epochs=3, hidden_dim=64, hidden_layers=2,
-                          maxk=8, dropout=0.0, lr=0.01, device=device)
+                          maxk=8, dropout=0.0, lr=0.01, kernel_mode="segsum", device=device)
         losses[device] = train(cfg, data, warmup_epochs=3).losses
     # summation order differs between devices; a top-k near-tie that the
     # order flips moves one row of V, so the bound is 1e-3 relative
@@ -641,7 +642,8 @@ def phase_sharded_small(wrappers: dict) -> dict:
             losses = {}
             for device in ("cpu", "cuda"):
                 cfg = TrainConfig(dataset=d.name, model=model, epochs=3, hidden_dim=64,
-                                  hidden_layers=2, maxk=8, dropout=0.0, lr=0.01, device=device)
+                                  hidden_layers=2, maxk=8, dropout=0.0, lr=0.01,
+                                  kernel_mode="segsum", device=device)
                 losses[device] = train(cfg, d, warmup_epochs=3).losses
             if d is proteins:
                 for fn in wrappers.values():
@@ -757,6 +759,9 @@ def phase_op(graph):
 
 
 def phase_train(data):
+    """The main path's training, under `--kernel_mode segsum`: the baseline
+    that tiles_train's and hybrid_train's steps and losses are held to,
+    whatever AUTO picks on this graph."""
     import torch
 
     from maxk_tpu_torch.train.config import TrainConfig
@@ -765,7 +770,7 @@ def phase_train(data):
 
     cfg = TrainConfig(dataset="reddit", model="sage", epochs=EPOCHS, lr=0.01,
                       hidden_dim=DIM, hidden_layers=LAYERS, maxk=K, dropout=0.5,
-                      device="cuda")
+                      kernel_mode="segsum", device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = train(cfg, data, logger=get_logger(name="chip_smoke"), warmup_epochs=2)
@@ -1015,6 +1020,286 @@ def phase_tiles_train(data, segsum_losses, segsum_step_ms):
          fwd_tiles=sharded.graph.fwd_tiles.num_tiles, bwd_tiles=sharded.graph.bwd_tiles.num_tiles,
          losses=sharded.losses, cpu_segsum_losses=cpu, max_rel_diff=rel, rtol=1e-3)
     require(rel <= 1e-3, f"sharded tiles_scan: losses differ from the CPU's by {rel}")
+
+
+def _host_max_rss_gb() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+
+
+def phase_host_hybrid(data):
+    """The strip schedule of the reddit ×1.0 graph on the card, as training
+    builds it (`build_graph(hybrid=True)`, right norm, its widths from the
+    card's rates): the whole build's seconds, then each piece timed by
+    itself (the symmetry check, the permutation, the strip and tail build,
+    the tail tables alone); the strip's dtype, width and bytes; the tail's
+    live edges, tiles and padding, held to `tail_slot_stats`; the peak
+    device memory and the process's peak host memory (the strip goes
+    straight to the card: no (Vp, S) f32 host array). Returns the graph."""
+    import torch
+
+    from maxk_tpu_torch.sparse import hybrid as hyb
+    from maxk_tpu_torch.sparse.graph import build_graph
+    from maxk_tpu_torch.sparse.meta import build_edge_tiles
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = _host_max_rss_gb()
+    graph, graph_s = timed(lambda: build_graph(data.csr, norm="right", device="cuda",
+                                               hybrid=True, dim=DIM))
+    h = graph.hybrid
+    require(h is not None, "build_graph(hybrid=True) built no schedule on reddit x1.0")
+    peak = torch.cuda.max_memory_allocated()
+    csr = data.csr.to("cuda")
+    ok, check_s = timed(lambda: hyb.check_hybrid_ok(csr))
+    pcsr, perm_s = timed(lambda: hyb.permute_csr(csr, hyb.degree_perm(csr)))
+    del csr
+    rates = hyb.card_rates("cuda")
+    dtype = hyb.auto_strip_dtype(pcsr)
+    e_live = int(pcsr.indptr[-1])
+    s_auto = hyb.auto_strip_cols(pcsr.num_nodes, e_live=e_live, dim=DIM,
+                                 strip_itemsize=torch.empty((), dtype=dtype).element_size(),
+                                 rates=rates)
+    again, build_s = timed(lambda: hyb.build_hybrid(pcsr, s_cols=s_auto, norm="right",
+                                                    strip_dtype=dtype))
+    same = torch.equal(again.strip, h.strip) and torch.equal(again.tail_tiles.cols,
+                                                             h.tail_tiles.cols)
+    del again
+    rows, cols, vals = hyb._live(pcsr)
+    m = (rows >= h.s_cols) & (cols >= h.s_cols) & (vals != 0)
+    _, tail_s = timed(lambda: build_edge_tiles(
+        hyb._subgraph(pcsr.num_nodes, rows[m], cols[m], vals[m]), 8,
+        h.tail_tiles.edge_tile).to("cuda"))
+    del rows, cols, vals, m
+    t = h.tail_tiles
+    tail_live = int((t.vals != 0).sum())
+    stats = hyb.tail_slot_stats(pcsr, h.s_cols, edge_tile=t.edge_tile, presorted=True)
+    rec = dict(nodes=h.num_nodes, edges=e_live, hbm_bytes=rates.hbm_bytes,
+               strip_budget=rates.strip_budget, strip_dtype=str(h.strip.dtype).split(".")[-1],
+               s_cols=h.s_cols, s_auto=s_auto, strip_bytes=h.strip.numel() * h.strip.element_size(),
+               tail_live=tail_live, tail_share=tail_live / e_live, tail_tiles=t.num_tiles,
+               tail_edge_tile=t.edge_tile, tail_pad_ratio=t.num_tiles * t.edge_tile / tail_live,
+               tail_chunk=h.tail_chunk, tail_window=h.tail_window,
+               strip_line_sum=h.strip_line_sum, schedule_bytes=h.nbytes,
+               build_graph_s=graph_s, check_s=check_s, permute_s=perm_s,
+               build_hybrid_s=build_s, tail_tables_s=tail_s, strip_s=build_s - tail_s,
+               max_memory_allocated=peak, host_max_rss_gb_before=rss0,
+               host_max_rss_gb_after=_host_max_rss_gb(), stats_tiles=stats["tiles"])
+    emit("host_hybrid", **rec)
+    require(ok, "reddit x1.0 is not value-symmetric")
+    require(same, "build_hybrid on the card differs from build_graph's schedule")
+    require(stats["tiles"] == t.num_tiles and stats["tail_live"] == tail_live,
+            f"tail_slot_stats {stats} against the tables' {t.num_tiles} tiles, {tail_live} live")
+    require(h.strip.dtype == torch.int8, f"the reddit strip is {h.strip.dtype}, not int8")
+    return graph
+
+
+def phase_hybrid_op(hgraph):
+    """On reddit ×1.0 with its strip schedule `hgraph` (permuted, right norm):
+    `spmm(mode="hybrid")` over A and Aᵀ, f32 and bf16, against
+    `spmm(mode="segsum")` and `torch.sparse.mm` on the same inputs (two runs
+    of 3 calls a mode, in turns), each element within 2^-6 · (|A| @ |x|) +
+    2^-7 · |ref| + 1e-5 · max|ref| of segsum's (each side rounds a term at
+    most twice to bf16, a scale and a feature or a product, a relative 2^-8
+    each, and its bf16 result once); the A f32 call's pieces timed
+    apart (the int8 strip's conversion alone, the two strip products with
+    it, the tail scan) and one call profiled (launches, device busy share);
+    `hybrid_int8` against the exact hybrid, within its quantization bound;
+    `maxk_spgemm` under hybrid (K2, K3), forward and backward at k = 32,
+    bf16 compute, against its segsum mode."""
+    import torch
+
+    from maxk_tpu_torch.ops import spmm_hybrid as sh
+    from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
+    from maxk_tpu_torch.ops.spmm_xla import spmm_segsum, spmm_tiles_scan
+    from maxk_tpu_torch.sparse.cbsr import CBSR
+    from maxk_tpu_torch.sparse.graph import Graph
+
+    h = hgraph.hybrid
+    v = h.num_nodes
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    spmms, parts = [], {}
+    for name, csr in (("A", hgraph.csr), ("At", hgraph.csc)):
+        view = Graph(csr=csr, csc=csr, hybrid=h if name == "A" else None)
+
+        def hybrid_call(x, name=name):
+            if name == "A":
+                return spmm(view, x, mode="hybrid")
+            return sh.spmm_hybrid(h, x, transpose=True)
+
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).split(".")[-1]
+            x = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
+            y = hybrid_call(x).float()
+            ref = spmm_segsum(csr, x).float()
+            absref = spmm_segsum(csr, x.abs().float())
+            slack = 2.0**-6 * absref + 2.0**-7 * ref.abs() + 1e-5 * ref.abs().max()
+            ratio = float(((y - ref).abs() / slack).max())
+            rel = float((y - ref).abs().max() / ref.abs().max())
+            del y, ref, absref, slack
+            runs = {"hybrid": [], "segsum": []}
+            for order in (("hybrid", "segsum"), ("segsum", "hybrid")):
+                for m in order:
+                    fn = (lambda: hybrid_call(x)) if m == "hybrid" else (
+                        lambda: spmm_segsum(csr, x))
+                    runs[m].append(cuda_ms(fn, 3))
+            t = {m: sum(r) / len(r) for m, r in runs.items()}
+            a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
+                                        csr.values.to(dtype), (v, v))
+            try:
+                lib = cuda_ms(lambda: torch.sparse.mm(a, x), 3)
+            except (NotImplementedError, RuntimeError) as e:  # the library's gap
+                lib = f"{type(e).__name__}: {e}"[:200]
+            del a
+            busy = {}
+            if name == "A" and dtype == torch.float32:
+                busy = {m: device_busy(lambda m=m: spmm(view, x, mode=m))
+                        for m in ("hybrid", "segsum")}
+                s = h.s_cols
+                xc = x.to(torch.bfloat16)
+                buf = torch.empty((sh.ROW_CHUNK, s), dtype=torch.bfloat16, device="cuda")
+
+                def convert():  # returns the buffer, so timeit takes CUDA events
+                    for r0, r1 in sh._row_ranges(v, s, sh.ROW_CHUNK):
+                        buf[: r1 - r0].copy_(h.strip[r0:r1])
+                    return buf
+
+                arms = lambda: sh._strip_arms(h.strip, xc, xc[:s], 0)  # noqa: E731
+                acc0 = arms()[1]
+                parts = {"strip_convert_ms": cuda_ms(convert, 3),
+                         "strip_arms_ms": cuda_ms(arms, 3),
+                         "tail_scan_ms": cuda_ms(lambda: spmm_tiles_scan(
+                             h.tail_tiles, x, chunk=h.tail_chunk, acc0=acc0,
+                             window=h.tail_window or None), 3)}
+                parts["strip_products_ms"] = parts["strip_arms_ms"] - parts["strip_convert_ms"]
+                del buf, xc, acc0
+                # the lossy int8-feature mode against the exact hybrid
+                yq, ye = sh.spmm_hybrid(h, x, feat_int8=True), sh.spmm_hybrid(h, x)
+                bound = sh.int8_error_bound(h, x)
+                err, ymax = float((yq - ye).abs().max()), float(ye.abs().max())
+                parts["hybrid_int8"] = dict(
+                    max_abs_diff=err, bound=bound, max_rel_diff=err / ymax,
+                    ms=cuda_ms(lambda: sh.spmm_hybrid(h, x, feat_int8=True), 3))
+                del yq, ye
+                # the lossy bound, never the exact tolerance (f32 sums' slack)
+                require(err <= bound + 1e-5 * ymax,
+                        f"hybrid_int8: {err} from the exact hybrid, beyond its bound {bound}")
+            del x
+            spmms.append(dict(operand=name, dtype=tag, hybrid_ms=t["hybrid"],
+                              segsum_ms=t["segsum"], runs_ms=runs, sparse_mm_ms=lib,
+                              hybrid_over_segsum=t["hybrid"] / t["segsum"],
+                              max_rel_diff=rel, max_err_over_bound=ratio, profile=busy))
+            require(ratio <= 1.0, f"spmm hybrid {name} {tag}: {ratio} of its bound from segsum")
+
+    vals = torch.randn((v, K), generator=gen, device="cuda")
+    sel = torch.randint(0, DIM, (v, K), generator=gen, device="cuda", dtype=torch.int32)
+    ct = torch.randn((v, DIM), generator=gen, device="cuda")
+    bf16 = torch.bfloat16
+
+    def fwd_bwd(mode):
+        va = vals.detach().requires_grad_(True)
+        y = maxk_spgemm(hgraph, CBSR(va, sel), dim=DIM, mode=mode, compute_dtype=bf16)
+        torch.vdot(y.flatten(), ct.flatten()).backward()
+        return y, va.grad
+
+    out = {m: fwd_bwd(m) for m in ("hybrid", "segsum")}
+    (y, dv), (y0, dv0) = out["hybrid"], out["segsum"]
+    rel_y = ((y - y0).abs().max() / y0.abs().max()).item()
+    rel_d = ((dv - dv0).abs().max() / dv0.abs().max()).item()
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(dv).all())
+    del out, y, dv, y0, dv0
+    t = {}
+    for m in ("hybrid", "segsum"):
+        t[f"{m}_fwd_ms"] = cuda_ms(
+            lambda m=m: maxk_spgemm(hgraph, CBSR(vals, sel), dim=DIM, mode=m, compute_dtype=bf16),
+            3)
+        t[f"{m}_fwd_bwd_ms"] = cuda_ms(lambda m=m: fwd_bwd(m), 3)
+    tol = 2e-2  # bf16 values both ways; the hybrid's strip products round no product
+    emit("hybrid_op", nodes=v, edges=hgraph.nnz, dim=DIM, s_cols=h.s_cols,
+         strip_dtype=str(h.strip.dtype).split(".")[-1], tail_chunk=h.tail_chunk,
+         row_chunk=sh.ROW_CHUNK, spmm=spmms, parts=parts,
+         maxk_spgemm=dict(k=K, compute_dtype="bfloat16", rel_diff_fwd=rel_y, rel_diff_grad=rel_d,
+                          tol=tol, finite=finite, **t))
+    require(finite and rel_y <= tol and rel_d <= tol,
+            f"maxk_spgemm hybrid vs segsum: {rel_y}, {rel_d} > {tol}")
+
+
+def phase_hybrid_train(data, segsum_losses, segsum_step_ms):
+    """MaxK-SAGE 4×256, k=32, dropout 0.5, lr 0.01 on reddit ×1.0 under
+    `--kernel_mode hybrid` for TILE_EPOCHS epochs (K1 in every layer, the
+    strip hybrid its aggregation): the step beside the segsum step of the
+    train phase (`step_over_segsum`), and the losses against that run's
+    first epochs within 2e-2 relative (the same parameters; the hybrid's
+    nodes are permuted, so the dropout masks fall on other nodes, and its
+    strip features are rounded to bf16). Then the sharded small case at
+    world size 1 under hybrid (K4, K2, K3 over the rank's strip) against
+    the single-device hybrid on the CPU, and the AUTO rule's decision on
+    this graph with its numbers."""
+    import torch
+
+    from maxk_tpu_torch.data.datasets import load_dataset
+    from maxk_tpu_torch.parallel.mesh import destroy_mesh, free_tcp_init_method, init_mesh
+    from maxk_tpu_torch.parallel.train import train_sharded
+    from maxk_tpu_torch.sparse import hybrid as hyb
+    from maxk_tpu_torch.train.config import TrainConfig
+    from maxk_tpu_torch.train.loop import train
+
+    cfg = TrainConfig(dataset="reddit", model="sage", epochs=TILE_EPOCHS, lr=0.01,
+                      hidden_dim=DIM, hidden_layers=LAYERS, maxk=K, dropout=0.5,
+                      kernel_mode="hybrid", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(cfg, data, warmup_epochs=1)
+    wall = time.perf_counter() - t0
+    losses = state.losses
+    step = 1e3 * sum(state.epoch_times) / len(state.epoch_times)
+    ref = segsum_losses[:TILE_EPOCHS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    h = state.graph.hybrid
+    emit("hybrid_train", nodes=data.csr.num_nodes, edges=data.csr.nnz, layers=LAYERS, hidden=DIM,
+         k=K, dropout=0.5, lr=0.01, epochs=TILE_EPOCHS, kernel_mode="hybrid",
+         losses=losses, segsum_losses=ref, max_rel_diff=rel, rtol=2e-2,
+         step_ms=[1e3 * t for t in state.epoch_times], step_ms_post_warmup=step,
+         segsum_step_ms_post_warmup=segsum_step_ms, step_over_segsum=step / segsum_step_ms,
+         s_cols=h.s_cols, strip_dtype=str(h.strip.dtype).split(".")[-1],
+         schedule_bytes=h.nbytes, wall_s=wall, best_val=state.best_val,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    require(len(losses) == TILE_EPOCHS and all(math.isfinite(x) for x in losses),
+            f"hybrid training: non-finite or missing losses {losses}")
+    require(rel <= 2e-2, f"hybrid training: losses {losses} differ from segsum's {ref} by {rel}")
+    del state
+
+    rates = hyb.card_rates("cuda")
+    v, e = data.csr.num_nodes, int(data.csr.indptr[-1])
+    s = hyb.auto_strip_cols(v, e_live=e, dim=DIM, strip_itemsize=1, rates=rates)
+    emit("auto_rule", nodes=v, edges=e, s_cols=s, matmul_flops=rates.matmul_flops,
+         gather_sec_per_edge=rates.gather_sec_per_edge, hbm_bytes=rates.hbm_bytes,
+         strip_products_s=3.0 * -(-v // 128) * 128 * s * DIM * 2 / rates.matmul_flops,
+         gather_s=e * rates.gather_sec_per_edge,
+         auto_picks_hybrid=hyb.auto_hybrid(data.csr, dim=DIM, device="cuda"),
+         hybrid_step_over_segsum=step / segsum_step_ms)
+
+    small = load_dataset("reddit", scale=0.002, seed=123)
+    args = dict(dataset="reddit", epochs=3, hidden_dim=64, hidden_layers=2, maxk=8, dropout=0.0,
+                lr=0.01, kernel_mode="hybrid")
+    cpu = train(TrainConfig(device="cpu", **args), small, warmup_epochs=3).losses
+    mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
+    try:
+        sharded = train_sharded(TrainConfig(device="cuda", **args), small, mesh, warmup_epochs=3)
+    finally:
+        destroy_mesh(mesh)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sharded.losses, cpu))
+    emit("hybrid_sharded_small", world_size=1, kernel_mode="hybrid",
+         nodes=small.csr.num_nodes, edges=small.csr.nnz, s_cols=sharded.graph.hybrid.s_cols,
+         losses=sharded.losses, cpu_hybrid_losses=cpu, max_rel_diff=rel, rtol=1e-3)
+    require(rel <= 1e-3, f"sharded hybrid: losses differ from the CPU's by {rel}")
 
 
 def phase_lookahead_ckpt():
@@ -1311,6 +1596,18 @@ def main() -> int:
         tiles = read("tiles")
         for name in ("maxk_mask", "cbsr_densify", "cbsr_sample"):
             require(tiles[name] > 0, f"{name} was not launched on the tile path")
+
+        # the strip hybrid: the schedule, the op, then training under hybrid
+        torch.cuda.empty_cache()
+        hgraph = phase_host_hybrid(data)
+        reset()
+        phase_hybrid_op(hgraph)
+        del hgraph
+        torch.cuda.empty_cache()
+        phase_hybrid_train(data, segsum_losses, segsum_step)
+        hybrid = read("hybrid")
+        for name in ("maxk_mask", "topk_cbsr", "cbsr_densify", "cbsr_sample"):
+            require(hybrid[name] > 0, f"{name} was not launched on the hybrid path")
 
         # the row-partitioned path (counts reset inside, read right after)
         torch.cuda.empty_cache()

@@ -17,10 +17,16 @@ Prints one JSON line on stdout, `{"metric", "value", "unit",
 "vs_baseline"}`, with the forward's live edges per second against the
 same A100 estimate as `bench.py` (4.0 Gnnz/s, see its docstring);
 everything else goes to stderr. Scale 0 means 1.0 on a card and 0.02 with
-`--device cpu`. `auto` resolves to segsum; `tiles_xla` and `tiles_scan`
+`--device cpu`. `auto` resolves per graph, as the training loop's AUTO
+(`sparse/hybrid.auto_hybrid`): the strip hybrid on a card where its
+products beat the gather SpMM, else segsum (the reference picks the hybrid
+or tiles_scan on a TPU, `bench.py:149-193`); `tiles_xla` and `tiles_scan`
 run the edge-tile SpMMs (their tables built with the graph); `hybrid` and
-`pallas` raise (`ops/dispatch.resolve_mode`). The dense baseline stays
-segsum, as the reference's does off the TPU.
+`hybrid_int8` the strip hybrid over the degree-permuted graph (int8 strip
+where exact, width by `auto_strip_cols` at the card's rates), and the
+record gains `schedule`: the strip's dtype and width, the tail's live
+edges and tiles; `pallas` raises (`ops/dispatch.resolve_mode`). The dense
+baseline stays segsum, as the reference's does off the TPU.
 
 The graph is the port's host `data.synthetic.rmat_graph(v, e, seed=123)`,
 the call `load_dataset` makes, so at reddit × 1.0 it is the training
@@ -50,17 +56,20 @@ def run_bench(csr, k: int = 32, dim: int = 256, mode: str = "auto", device="cuda
     """Time the arms on the raw (unnormalized) CSR `csr`; returns the JSON
     record. `label` names the graph in the metric."""
     from maxk_tpu_torch.bench.micro import timeit
-    from maxk_tpu_torch.ops.dispatch import TILE_MODES, resolve_mode
+    from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, TILE_MODES, KernelMode, resolve_mode
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
     from maxk_tpu_torch.sparse.cbsr import CBSR, cbsr_densify
     from maxk_tpu_torch.sparse.graph import build_graph
+    from maxk_tpu_torch.sparse.hybrid import auto_hybrid
     from maxk_tpu_torch.train.loop import resolve_device
 
     device = resolve_device(device)
-    mode = resolve_mode(mode).value
+    mode = resolve_mode(mode, has_hybrid=auto_hybrid(csr, dim=dim, device=device)).value
     # right norm breaks value symmetry, so the backward arm gets the real Aᵀ
     graph = build_graph(csr, norm="right", symmetric=False, device=device,
-                        build_tiles=mode in TILE_MODES)
+                        build_tiles=mode in TILE_MODES, hybrid=mode in HYBRID_MODES, dim=dim)
+    if mode in HYBRID_MODES and graph.hybrid is None:
+        raise ValueError(f"--mode {mode}: the graph is not undirected, so it has no strip schedule")
     v = graph.num_nodes
     e_real = int((graph.csr.values != 0).sum())
     bf16 = torch.bfloat16
@@ -102,12 +111,24 @@ def run_bench(csr, k: int = 32, dim: int = 256, mode: str = "auto", device="cuda
     log(f"maxk fwd+bwd: {t_bwd*1e3:.3f} ms")
 
     nnz_s = e_real / t_fwd
-    return {
+    rec = {
         "metric": f"spmm_maxk fwd nnz/s ({label}, k={k}, {mode}, {device.type})",
         "value": round(nnz_s / 1e9, 4),
         "unit": "Gnnz/s",
         "vs_baseline": round(nnz_s / A100_MAXK_K32_NNZ_S, 4),
     }
+    if graph.hybrid is not None:
+        rec["schedule"] = schedule_record(graph.hybrid)
+        rec["schedule"]["feat_int8"] = mode == KernelMode.HYBRID_INT8.value
+    return rec
+
+
+def schedule_record(h) -> dict:
+    """A strip schedule's shape: strip dtype and width, tail live edges,
+    tiles and tile width."""
+    return {"strip_dtype": str(h.strip.dtype).split(".")[-1], "s_cols": h.s_cols,
+            "tail_live": int((h.tail_tiles.vals != 0).sum()),
+            "tail_tiles": h.tail_tiles.num_tiles, "tail_edge_tile": h.tail_tiles.edge_tile}
 
 
 def main(argv=None) -> dict:

@@ -18,11 +18,21 @@ against the plain path (plain densify + segment-sum SpMM) per k.
 
 Graphs: `--dir` loads `<name>.indptr/.indices` binaries; otherwise the
 port's host R-MAT at the dataset's size × `--scale` (the reference draws
-its instance on the device). `auto` resolves to segsum; `--mode
+its instance on the device). `auto` resolves per graph as the training
+loop's AUTO (`sparse/hybrid.auto_hybrid`, with the strip dtype given): the
+strip hybrid on a card where it pays, else segsum; `--mode
 tiles_xla|tiles_scan` runs the edge-tile SpMMs over tables built on the
-device. The baseline (library) arm is `tiles_scan` on a card, as the
-reference's is off the CPU, unless the mode is segsum (so under `auto`),
-and segsum on the CPU. The hybrid modes are not ported (ROADMAP A13).
+device; `--mode hybrid|hybrid_int8` the strip hybrid over the degree-
+permuted graph, the strip built after the baseline arms (`--strip_dtype
+auto|bfloat16|int8`, auto: int8 where exact; width by `auto_strip_cols` at
+the card's rates; `--tail_band_cols`, -1: `auto_tail_band_cols`). The
+baseline (library) arm is `tiles_scan` on a card, as the reference's is
+off the CPU, unless the mode is segsum, and segsum on the CPU. A hybrid
+record adds `strip_dtype`, `strip_cols`, `tail_band_cols` and `feat_int8`
+(true under hybrid_int8); its validation takes `hybrid_int8`'s lossy
+bound (`ops/spmm_hybrid.int8_error_bound`) on top of the exact tolerance,
+and says so in `validation`. `--dispatch_check` also times the forward of
+the arm AUTO did not pick (segsum against the hybrid), once per graph.
 """
 
 from __future__ import annotations
@@ -69,9 +79,13 @@ def load_suite(args):
 def validate_graph(graph, cbsr, dim, mode, tol=1e-3, compute_dtype=None):
     """`maxk_spgemm` against the plain path (`densify_plain`, then the
     segment-sum SpMM), with the reference's error forensics
-    (`direct_kernel_interface.py:221-372`); ok when the mean error < tol."""
+    (`direct_kernel_interface.py:221-372`); ok when the mean error < tol.
+    Under `hybrid_int8` (lossy) tol grows by the quantization bound
+    (`int8_error_bound`), never the exact tolerance alone."""
     from maxk_tpu_torch.ops.cbsr_cuda import densify_plain
+    from maxk_tpu_torch.ops.dispatch import KernelMode, resolve_mode
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm
+    from maxk_tpu_torch.ops.spmm_hybrid import int8_error_bound
     from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
 
     with torch.no_grad():
@@ -93,6 +107,13 @@ def validate_graph(graph, cbsr, dim, mode, tol=1e-3, compute_dtype=None):
             "n_gt_0.1": int((err > 0.1).sum()),
             "n_gt_0.5": int((err > 0.5).sum()),
         }
+        if resolve_mode(mode) == KernelMode.HYBRID_INT8:
+            h = graph.hybrid
+            x = densify_plain(cbsr.values.to(compute_dtype or cbsr.values.dtype)
+                              * h.pre[:, None].to(compute_dtype or cbsr.values.dtype),
+                              cbsr.selector, dim)
+            detail["lossy_bound"] = int8_error_bound(h, x, pre_applied=True)
+            tol = detail["tol"] = tol + detail["lossy_bound"]
     return mean_err < tol, detail
 
 
@@ -100,11 +121,16 @@ def _vdot_f32(a, b):
     return torch.vdot(a.float().flatten(), b.float().flatten())
 
 
+STRIP_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
 def main(argv=None):
+    from maxk_tpu_torch.bench.bench import schedule_record
     from maxk_tpu_torch.bench.micro import timeit
-    from maxk_tpu_torch.ops.dispatch import TILE_MODES, resolve_mode
+    from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, TILE_MODES, KernelMode, resolve_mode
     from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
     from maxk_tpu_torch.ops.topk_cuda import maxk_mask_fast
+    from maxk_tpu_torch.sparse import hybrid as hyb
     from maxk_tpu_torch.sparse.cbsr import CBSR
     from maxk_tpu_torch.sparse.csr import with_norm
     from maxk_tpu_torch.sparse.graph import Graph
@@ -124,13 +150,16 @@ def main(argv=None):
         "--io_itemsize", type=int, default=4,
         help="2 runs the masked and CBSR arms' (V, dim) IO in bf16",
     )
+    p.add_argument("--strip_dtype", default="auto", choices=["auto", *STRIP_DTYPES],
+                   help="hybrid strip dtype; auto: int8 where exact, else bfloat16")
+    p.add_argument("--tail_band_cols", type=int, default=-1,
+                   help="hybrid tail column-band width; 0: one band, -1: the default rule")
+    p.add_argument("--dispatch_check", action="store_true",
+                   help="also time the forward of the arm AUTO did not pick, once per graph")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    mode = resolve_mode(args.mode).value
-    # the library arm: plain PyTorch over the tile schedule on a card, as
-    # the reference's cuSPARSE role (`kernels/main.cu`) off the CPU
-    base_mode = "segsum" if mode == "segsum" or device.type == "cpu" else "tiles_scan"
+    resolve_mode(args.mode)  # pallas raises before any graph is made
     bf16 = torch.bfloat16
 
     def rand(shape, seed, dtype=torch.float32):
@@ -145,7 +174,25 @@ def main(argv=None):
                 json.dump(results, f, indent=1)
 
     for n, (name, g) in enumerate(load_suite(args)):
-        g = with_norm(g, "right").to(device)
+        g = g.to(device)
+        strip_dtype = (hyb.auto_strip_dtype(g) if args.strip_dtype == "auto"
+                       else STRIP_DTYPES[args.strip_dtype])
+        mode = resolve_mode(args.mode, has_hybrid=hyb.auto_hybrid(
+            g, args.dim, args.io_itemsize, device, strip_dtype)).value
+        hybrid = mode in HYBRID_MODES
+        permuted = (hybrid or args.dispatch_check) and hyb.check_hybrid_ok(g)
+        if permuted:
+            # the degree-permuted graph; its strip is built after the
+            # baseline arms, whose tile tables it need not sit beside
+            g = hyb.permute_csr(g, hyb.degree_perm(g))
+        elif hybrid:
+            raise ValueError(f"--mode {mode}: {name} is not undirected, so it has no strip "
+                             "schedule")
+        g_raw = g
+        g = with_norm(g, "right")
+        # the library arm: plain PyTorch over the tile schedule on a card, as
+        # the reference's cuSPARSE role (`kernels/main.cu`) off the CPU
+        base_mode = "segsum" if mode == "segsum" or device.type == "cpu" else "tiles_scan"
         # the backward arms run A, not Aᵀ, as the reference suite's do
         # (`kernel_bench.py:271`): the same work, and no transpose to build
         tiled = mode in TILE_MODES or base_mode == "tiles_scan"
@@ -159,6 +206,21 @@ def main(argv=None):
         t_base16 = timeit(lambda x: spmm(graph, x.to(bf16), mode=base_mode), x_dense, iters=4)
         print(f"{n} {name} {args.dim} - cusparse_role_bf16 {t_base16*1e3:.4f}", flush=True)
         del x_dense
+
+        def build_schedule():
+            s_cols = hyb.auto_strip_cols(
+                v, e_live=e_real, dim=args.dim, io_itemsize=args.io_itemsize,
+                strip_itemsize=torch.empty((), dtype=strip_dtype).element_size(),
+                rates=hyb.card_rates(device))
+            band = (hyb.auto_tail_band_cols(v, s_cols) if args.tail_band_cols < 0
+                    else args.tail_band_cols)
+            return hyb.build_hybrid(g_raw, s_cols=s_cols, norm="right", strip_dtype=strip_dtype,
+                                    tail_band_cols=band), band
+
+        if hybrid:
+            del graph, tiles
+            h, band = build_schedule()
+            graph = Graph(csr=g, csc=g, hybrid=h)
         # (V, dim) IO in bf16 once an f32 pair no longer fits beside the
         # graph, or on request (the reference's rule)
         io_dtype = bf16 if args.io_itemsize == 2 or v * args.dim * 4 > (2 << 30) else torch.float32
@@ -235,6 +297,12 @@ def main(argv=None):
                 "cbsr_val_dtype": str(io_dtype).split(".")[-1],
                 "mask_dtype": str(io_dtype).split(".")[-1],
             }
+            if hybrid:  # the schedule built, and whether its features were int8
+                sched = schedule_record(h)
+                rec.update(strip_dtype=sched["strip_dtype"], strip_cols=h.s_cols,
+                           tail_band_cols=band, tail_live=sched["tail_live"],
+                           tail_tiles=sched["tail_tiles"],
+                           feat_int8=mode == KernelMode.HYBRID_INT8.value)
             # the timing record is kept before validation, and again with it
             results.append(rec)
             dump()
@@ -245,6 +313,22 @@ def main(argv=None):
                 log(f"  validate k={k}: ok={ok} {detail}")
                 dump()
             del vals, sel, cbsr
+        if args.dispatch_check and mode in ("hybrid", "segsum") and permuted:
+            # the arm AUTO did not pick, at the smallest k: the production
+            # forward is the SpMM on masked bf16 features either way
+            alt = "segsum" if hybrid else "hybrid"
+            alt_graph = graph if hybrid else Graph(csr=g, csc=g, hybrid=build_schedule()[0])
+            kf = min(args.k)
+            xm = maxk_mask_fast(rand((v, args.dim), 999), kf).to(bf16)
+            t_alt = timeit(lambda x: spmm(alt_graph, x, mode=alt), xm, iters=4)
+            t_pick = next(r["t_fwd_ms"] for r in results if r["graph"] == name and r["k"] == kf)
+            results.append({"kind": "dispatch_check", "graph": name, "V": v, "E": e_real,
+                            "picked": mode, "alt": alt, "t_fwd_picked_ms": t_pick,
+                            "t_fwd_alt_ms": t_alt * 1e3,
+                            "picked_faster": bool(t_pick <= t_alt * 1e3)})
+            log(f"  dispatch_check: picked={mode} {t_pick:.2f} ms vs {alt} {t_alt*1e3:.2f} ms")
+            dump()
+            del alt_graph, xm
     if args.json_out:
         log(f"wrote {args.json_out} ({len(results)} records)")
     return results

@@ -1,7 +1,6 @@
 """Core aggregation ops with their backward rules.
 
-Port of `maxk_tpu/ops/spgemm.py` (the segsum and edge-tile branches), as
-autograd Functions:
+Port of `maxk_tpu/ops/spgemm.py`, as autograd Functions:
 
   spmm:        forward  Y = A @ x,  backward  dx = Aᵀ @ g
   maxk_spgemm: forward  Y = A @ densify(CBSR)
@@ -22,10 +21,19 @@ all_gathers the compressed CBSR (values cast to `compute_dtype` first),
 densifies and aggregates the local block, and its backward samples the
 reduce-scattered cotangent at the local selectors.
 
-The SpMM is `spmm_segsum` under AUTO and SEGSUM; under TILES_XLA and
-TILES_SCAN it runs over the graph's edge-tile tables (`build_graph(
-build_tiles=True)`, `build_sharded_graph(build_tiles=True)`), which must
-exist. A rank's block always takes `spmm_tiles_scan`, as in the reference.
+The SpMM is `spmm_segsum` under SEGSUM, and under AUTO on a graph without
+a strip schedule; under TILES_XLA and TILES_SCAN it runs over the graph's
+edge-tile tables (`build_graph(build_tiles=True)`, `build_sharded_graph(
+build_tiles=True)`), which must exist. A rank's block always takes
+`spmm_tiles_scan`, as in the reference. Under HYBRID and HYBRID_INT8 (and
+AUTO on a graph with a schedule) it is `spmm_hybrid` over the graph's
+strip schedule (`build_graph(hybrid=True)`; an explicit hybrid mode on a
+graph without one raises `ValueError`), whose Aᵀ is the same schedule;
+maxk_spgemm then folds the pre-scale into the (V, k) values before the
+densify (`spgemm.py:196-211`). A sharded graph with a schedule
+(`build_sharded_graph(hybrid=True)`) all_gathers the features, dense or
+compressed, and runs `spmm_hybrid_sharded` both ways, whatever the mode,
+as the reference's does (`spgemm.py:51-69,172-182`).
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ from typing import Optional
 import torch
 
 from maxk_tpu_torch.ops.cbsr_cuda import densify, sample
-from maxk_tpu_torch.ops.dispatch import KernelMode, resolve_mode
+from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, KernelMode, missing_hybrid, resolve_mode
+from maxk_tpu_torch.ops.spmm_hybrid import spmm_hybrid, spmm_hybrid_sharded
 from maxk_tpu_torch.ops.spmm_xla import spmm_segsum, spmm_tiles_scan, spmm_tiles_xla
 from maxk_tpu_torch.parallel.collectives import all_gather_rows, reduce_scatter_rows
 from maxk_tpu_torch.parallel.shard import ShardedGraph
@@ -48,6 +57,8 @@ def _local_spmm(csr, tiles, x: torch.Tensor, mode: str, sharded: bool = False) -
     resolved = resolve_mode(mode, tiles is not None)
     if resolved == KernelMode.SEGSUM:
         return spmm_segsum(csr, x)
+    if resolved in HYBRID_MODES:  # a rank's block without a strip schedule
+        raise missing_hybrid(resolved)
     if tiles is None:
         raise ValueError(f"kernel_mode={mode!r} needs edge-tile tables: build the graph with "
                          "build_tiles=True")
@@ -56,14 +67,32 @@ def _local_spmm(csr, tiles, x: torch.Tensor, mode: str, sharded: bool = False) -
     return spmm_tiles_scan(tiles, x)
 
 
+def _hybrid_mode(graph, mode: str):
+    """The resolved hybrid mode of a one-device graph, or None for the
+    other SpMMs; raises for a hybrid mode on a graph without a schedule."""
+    resolved = resolve_mode(mode, graph.tiles is not None, graph.hybrid is not None)
+    if resolved not in HYBRID_MODES:
+        return None
+    if graph.hybrid is None:
+        raise missing_hybrid(resolved)
+    return resolved
+
+
 def _spmm_impl(graph, x: torch.Tensor, mode: str, transpose: bool) -> torch.Tensor:
     if isinstance(graph, ShardedGraph):
-        resolve_mode(mode)  # an unported mode raises before any collective
+        resolve_mode(mode)  # pallas raises before any collective
+        if graph.hybrid is not None:
+            return spmm_hybrid_sharded(graph.hybrid, all_gather_rows(x, graph.mesh), graph.mesh,
+                                       transpose=transpose)
         if transpose:  # (Vp, D) partials → summed local rows
             z = _local_spmm(graph.bwd, graph.bwd_tiles, x, mode, sharded=True)
             return reduce_scatter_rows(z, graph.mesh)
         return _local_spmm(graph.fwd, graph.fwd_tiles, all_gather_rows(x, graph.mesh), mode,
                            sharded=True)
+    hybrid = _hybrid_mode(graph, mode)
+    if hybrid is not None:
+        return spmm_hybrid(graph.hybrid, x, transpose=transpose,
+                           feat_int8=hybrid == KernelMode.HYBRID_INT8)
     if transpose:
         return _local_spmm(graph.csc, graph.tiles_t, x, mode)
     return _local_spmm(graph.csr, graph.tiles, x, mode)
@@ -97,12 +126,26 @@ class _MaxKSpGEMM(torch.autograd.Function):
             # numbers without a (V, dim) tensor in the wider dtype (and,
             # sharded, gathers fewer bytes)
             vals = vals.to(compute_dtype)
-        resolve_mode(mode)  # an unported mode raises before any collective
+        resolve_mode(mode)  # pallas raises before any collective
         if isinstance(graph, ShardedGraph):
             # gather the compressed features, not (Vp, dim) dense rows;
             # x is then whole, so the local block needs no second gather
-            x = densify(all_gather_rows(vals, graph.mesh), all_gather_rows(sel, graph.mesh), dim)
-            y = _local_spmm(graph.fwd, graph.fwd_tiles, x, mode, sharded=True)
+            vals, sel = all_gather_rows(vals, graph.mesh), all_gather_rows(sel, graph.mesh)
+            h = graph.hybrid
+            if h is not None:  # the pre-scale folded into the values, as below
+                x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
+                y = spmm_hybrid_sharded(h, x, graph.mesh, pre_applied=True)
+            else:
+                y = _local_spmm(graph.fwd, graph.fwd_tiles, densify(vals, sel, dim), mode,
+                                sharded=True)
+            return y.to(ctx.vals_dtype)
+        hybrid = _hybrid_mode(graph, mode)
+        if hybrid is not None:
+            # the pre-scale folded into the (V, k) values: the same product
+            # (unselected entries are 0 either way), one (V, dim) tensor fewer
+            h = graph.hybrid
+            x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
+            y = spmm_hybrid(h, x, pre_applied=True, feat_int8=hybrid == KernelMode.HYBRID_INT8)
         else:
             y = _spmm_impl(graph, densify(vals, sel, dim), mode, transpose=False)
         return y.to(ctx.vals_dtype)

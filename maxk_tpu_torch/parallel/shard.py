@@ -1,8 +1,9 @@
 """Row-partitioned graph sharding for multi-device aggregation.
 
-Port of `maxk_tpu/parallel/shard.py` (`ShardedGraph`, `build_sharded_graph`,
-`shard_rows`, `halo_stats`), with the edge-tile schedules and without the
-strip hybrid. The scheme is the reference's:
+Port of `maxk_tpu/parallel/shard.py` (`ShardedGraph`, `ShardedHybrid`,
+`build_sharded_graph`, `build_sharded_hybrid`, `shard_rows`, `halo_stats`),
+with the edge-tile schedules and the strip hybrid. The scheme is the
+reference's:
 
   - adjacency rows are block-partitioned over the ranks: rank r owns rows
     [r·Vs, (r+1)·Vs) of A and of the node features, Vs = ceil(V/n), and
@@ -14,10 +15,15 @@ strip hybrid. The scheme is the reference's:
     columns) over its local cotangent and a reduce_scatter sums the
     (Vp, D) partials and hands each rank its rows.
 
-Each rank holds only its own blocks. JAX pads every shard's edges to the
-largest shard's count, and every shard's tile tables to the largest tile
-count with inert tiles, because `shard_map` needs stacked arrays; the port
-needs no such padding: a rank's tables are the reference's shard prefix.
+  - with a strip schedule (`hybrid`), both directions gather the features
+    and run `ops/spmm_hybrid.spmm_hybrid_sharded` over the rank's rows of
+    the strip and its tail block (one (S, D) all_reduce of hub partials).
+
+Each rank holds only its own blocks, its own (Vs, S) rows of the strip
+among them. JAX pads every shard's edges to the largest shard's count,
+and every shard's tile tables to the largest tile count with inert tiles,
+because `shard_map` needs stacked arrays; the port needs no such padding:
+a rank's tables are the reference's shard prefix.
 """
 
 from __future__ import annotations
@@ -26,9 +32,102 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from maxk_tpu_torch.sparse import hybrid as hyb
 from maxk_tpu_torch.sparse.csr import CSRGraph, _from_scipy, csr_to_scipy, with_norm
-from maxk_tpu_torch.sparse.meta import EDGE_TILE, ROW_BLOCK, EdgeTiles, build_edge_tiles
+from maxk_tpu_torch.sparse.meta import (
+    EDGE_TILE,
+    ROW_BLOCK,
+    EdgeTiles,
+    build_edge_tiles,
+    max_block_span,
+)
+
+
+@dataclass(frozen=True)
+class ShardedHybrid:
+    """One rank's part of the strip schedule: its rows [r·Vs, (r+1)·Vs).
+
+    strip:      (Vs, S)  its rows of the hub strip W
+    pre, post:  (Vp,) f32 the full diagonal scales (the forward scales the
+                gathered full features)
+    tail_tiles: the edge tiles of its tail block (local rows ≥ S, global
+                columns ≥ S), the reference's shard prefix
+    tail_window: the scan window of this rank's tables
+    """
+
+    strip: torch.Tensor
+    pre: torch.Tensor
+    post: torch.Tensor
+    tail_tiles: EdgeTiles
+    rank: int
+    s_cols: int
+    num_nodes: int
+    padded_nodes: int
+    num_shards: int
+    tail_chunk: int = hyb.TAIL_CHUNK
+    tail_window: int = 0
+
+    @property
+    def shard_nodes(self) -> int:
+        return self.padded_nodes // self.num_shards
+
+
+def build_sharded_hybrid(
+    csr: CSRGraph,
+    num_shards: int,
+    rank: int,
+    s_cols: Optional[int] = None,
+    norm: str = "none",
+    strip_dtype: Optional[torch.dtype] = None,
+    row_block: int = ROW_BLOCK,
+    edge_tile: Optional[int] = None,
+    tail_chunk: int = hyb.TAIL_CHUNK,
+    dim: int = 256,
+    device=None,
+) -> ShardedHybrid:
+    """Rank `rank`'s part of the row-partitioned strip hybrid, built on
+    `device` (None: the CSR's). `csr` must already be degree-permuted and
+    raw-value-symmetric (`build_hybrid`'s contract); `norm` only sets the
+    scales. `strip_dtype` None: int8 where exact, else bf16; `edge_tile`
+    None: the tail width for that dtype; `s_cols` None: the default width
+    capped by what V/n rows of it fit in the device's strip budget (the
+    reference's rule)."""
+    device = csr.device if device is None else torch.device(device)
+    g = csr.to(device)
+    if strip_dtype is None:
+        strip_dtype = hyb.auto_strip_dtype(g)
+    itemsize = torch.empty((), dtype=strip_dtype).element_size()
+    if edge_tile is None:
+        edge_tile = hyb.TAIL_EDGE_TILE_INT8 if itemsize == 1 else hyb.TAIL_EDGE_TILE
+    v = csr.num_nodes
+    vs = -(-v // num_shards)
+    vp = vs * num_shards
+    if s_cols is None:
+        cap = hyb.STRIP_COLS_INT8 if itemsize == 1 else hyb.STRIP_COLS
+        s_cols = hyb.auto_strip_cols(vs, s_cols=min(cap, v), dim=dim, strip_itemsize=itemsize,
+                                     rates=hyb.card_rates(device))
+    s = hyb.strip_width(v, s_cols)
+    rows, cols, vals = hyb._live(g)
+    live = vals != 0
+    r0, r1 = rank * vs, (rank + 1) * vs
+    mine = (rows >= r0) & (rows < r1) & live
+    m = mine & (cols < s)
+    if not strip_dtype.is_floating_point:
+        hyb._check_integer_strip(vals[m], strip_dtype)
+    strip = hyb._zeros_strip(vs, s, strip_dtype, device)
+    hyb._fill_strip(strip, rows[m], cols[m], vals[m], r0)
+    m = mine & (cols >= s) & (rows >= s)
+    tail = build_edge_tiles(hyb._subgraph(vs, rows[m] - r0, cols[m], vals[m]), row_block,
+                            edge_tile).to(device)
+    deg = torch.zeros(vp, dtype=torch.float32, device=device).index_add_(0, rows, live.float())
+    pre, post = hyb._scales(deg, norm)
+    return ShardedHybrid(
+        strip=strip, pre=pre, post=post, tail_tiles=tail, rank=rank, s_cols=s, num_nodes=v,
+        padded_nodes=vp, num_shards=num_shards, tail_chunk=tail_chunk,
+        tail_window=max_block_span(tail.block, tail_chunk),
+    )
 
 
 @dataclass(frozen=True)
@@ -38,6 +137,7 @@ class ShardedGraph:
     fwd: rows [r·Vs, (r+1)·Vs) of A, global columns — (Vs, Vp)
     bwd: its transpose, global rows, local columns — (Vp, Vs)
     fwd_tiles, bwd_tiles: their edge-tile tables, or None
+    hybrid: the rank's part of the strip schedule, or None
     `mesh` is the rank's `parallel.mesh.Mesh`, whose collectives the
     aggregation ops call."""
 
@@ -49,6 +149,7 @@ class ShardedGraph:
     mesh: object
     fwd_tiles: Optional[EdgeTiles] = None
     bwd_tiles: Optional[EdgeTiles] = None
+    hybrid: Optional[ShardedHybrid] = None
 
     @property
     def shard_nodes(self) -> int:
@@ -91,17 +192,24 @@ def build_sharded_graph(
     hybrid: bool = False,
     row_block: int = ROW_BLOCK,
     edge_tile: int = EDGE_TILE,
+    strip_cols: Optional[int] = None,
+    tail_edge_tile: Optional[int] = None,
+    strip_dtype: Optional[torch.dtype] = None,
+    dim: int = 256,
 ) -> ShardedGraph:
     """This rank's blocks of the normalized `csr` on the mesh's device;
     with `build_tiles`, the edge-tile tables of both blocks (the forward's
     Vs rows, the backward's Vp rows), built on the host from the rank's own
-    blocks."""
-    if hybrid:
-        raise NotImplementedError(
-            "the sharded strip hybrid (hybrid=True, ShardedHybrid) is not ported "
-            "yet: ROADMAP A13"
-        )
+    blocks. With `hybrid`, `csr` must already be degree-permuted and
+    raw-value-symmetric (callers permute node data alike), and the rank's
+    part of the strip schedule is built (`build_sharded_hybrid`, tail tile
+    width `tail_edge_tile`); the CSR blocks are still built."""
     n = mesh.world_size
+    shyb = None
+    if hybrid:
+        shyb = build_sharded_hybrid(csr, n, mesh.rank, s_cols=strip_cols, norm=norm,
+                                    strip_dtype=strip_dtype, row_block=row_block,
+                                    edge_tile=tail_edge_tile, dim=dim, device=mesh.device)
     ((fwd, bwd),) = shard_blocks(csr, n, norm, ranks=[mesh.rank])
     fwd_tiles = bwd_tiles = None
     if build_tiles:
@@ -117,6 +225,7 @@ def build_sharded_graph(
         mesh=mesh,
         fwd_tiles=fwd_tiles,
         bwd_tiles=bwd_tiles,
+        hybrid=shyb,
     )
 
 

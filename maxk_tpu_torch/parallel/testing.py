@@ -24,6 +24,7 @@ from maxk_tpu_torch.parallel.train import (
     sharded_setup,
 )
 from maxk_tpu_torch.sparse.cbsr import CBSR
+from maxk_tpu_torch.sparse.hybrid import degree_perm, permute_csr
 from maxk_tpu_torch.train.config import TrainConfig
 
 
@@ -63,6 +64,32 @@ def ops_case(mesh, graph_args: tuple, norm: str, x, ct, vals, sel, xdrop,
         agg = aggregate(graph, _local(mesh, xdrop, vs), mode, None,
                         CBSR(_local(mesh, vals, vs), st))
     out["agg"] = agg.numpy()
+    return out
+
+
+def hybrid_case(mesh, graph_args: tuple, norm: str, s_cols: int, x, ct, vals, sel) -> dict:
+    """spmm and maxk_spgemm, forward and gradient, on this rank's rows of
+    the sharded strip hybrid (f32 strip of `s_cols` columns) of the
+    degree-permuted `rmat_graph(*graph_args)`; the inputs are in permuted
+    node order. With the all_reduce calls and payload bytes of each op's
+    forward + backward."""
+    csr = rmat_graph(*graph_args)
+    graph = build_sharded_graph(permute_csr(csr, degree_perm(csr)), mesh, norm=norm,
+                                hybrid=True, strip_cols=s_cols, strip_dtype=torch.float32)
+    vs, d = graph.shard_nodes, x.shape[1]
+    out = {"s_cols": graph.hybrid.s_cols}
+    xt = _local(mesh, x, vs).requires_grad_(True)
+    mesh.bytes.reset()
+    y = spmm(graph, xt, mode="hybrid")
+    y.backward(_local(mesh, ct, vs))
+    out.update(spmm_y=y.detach().numpy(), spmm_dx=xt.grad.numpy(),
+               spmm_reduce=(mesh.bytes.calls["all_reduce"], mesh.bytes.payload["all_reduce"]))
+    vt = _local(mesh, vals, vs).requires_grad_(True)
+    mesh.bytes.reset()
+    y = maxk_spgemm(graph, CBSR(vt, _local(mesh, sel, vs)), dim=d, mode="hybrid")
+    y.backward(_local(mesh, ct, vs))
+    out.update(maxk_y=y.detach().numpy(), maxk_dvals=vt.grad.numpy(),
+               maxk_reduce=(mesh.bytes.calls["all_reduce"], mesh.bytes.payload["all_reduce"]))
     return out
 
 

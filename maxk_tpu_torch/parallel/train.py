@@ -20,17 +20,20 @@ import numpy as np
 import torch
 
 from maxk_tpu_torch.data.datasets import GraphData
-from maxk_tpu_torch.ops.dispatch import TILE_MODES, resolve_mode
+from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, TILE_MODES, resolve_mode
 from maxk_tpu_torch.parallel.collectives import all_gather_rows, all_reduce_grads, all_reduce_sum
 from maxk_tpu_torch.parallel.mesh import Mesh
 from maxk_tpu_torch.parallel.shard import ShardedGraph, build_sharded_graph, shard_rows
+from maxk_tpu_torch.sparse.hybrid import check_hybrid_ok, degree_perm, permute_csr
 from maxk_tpu_torch.train.config import TrainConfig
 from maxk_tpu_torch.train.loop import (
     dataset_metric,
     model_from_config,
     optimizer_from_config,
     per_node_loss,
+    permuted_data,
     synchronize,
+    wants_hybrid,
 )
 from maxk_tpu_torch.train.metrics import rocauc
 from maxk_tpu_torch.train.optim import Optimizer
@@ -86,16 +89,35 @@ class ShardedState:
 def sharded_setup(cfg: TrainConfig, data: GraphData, mesh: Mesh) -> ShardedState:
     """Model, optimizer (Lookahead under `--enable_lookahead`), this rank's
     graph blocks and node rows. The blocks' edge-tile tables are built
-    under the tile modes alone: AUTO runs segsum here, where the
-    reference's sharded AUTO runs the tiles (ROADMAP C)."""
-    resolve_mode(cfg.kernel_mode)  # auto → segsum; hybrid and pallas raise
+    under the tile modes alone: AUTO never runs them here, where the
+    reference's sharded AUTO does (ROADMAP C). The strip schedule is built
+    where the single-device run would build it (`loop.wants_hybrid`),
+    `hybrid_int8` included (the sharded hybrid has no int8 features, as in
+    the reference), on the degree-permuted graph with the node rows
+    permuted alike; an explicit hybrid mode on a directed graph raises,
+    AUTO falls back (`maxk_tpu/parallel/train.py:142-195`)."""
+    resolve_mode(cfg.kernel_mode)  # pallas raises
     check_sharded_model(cfg.model)
     n, r = mesh.world_size, mesh.rank
     model, gnorm = model_from_config(cfg, data)
     model.to(mesh.device)
-    graph = build_sharded_graph(data.csr, mesh, norm=gnorm,
+    csr, hybrid = data.csr, False
+    if wants_hybrid(cfg, csr, mesh.device):
+        on_dev = csr.to(mesh.device)
+        hybrid = check_hybrid_ok(on_dev)
+        if hybrid:
+            perm = degree_perm(csr)
+            csr, data = permute_csr(on_dev, perm), permuted_data(data, perm)
+        elif cfg.kernel_mode in HYBRID_MODES:  # never a silent downgrade of an explicit mode
+            raise ValueError(
+                f"kernel_mode={cfg.kernel_mode!r} requires a value-symmetric (undirected) "
+                "graph; use kernel_mode='auto' for automatic fallback"
+            )
+        del on_dev
+    graph = build_sharded_graph(csr, mesh, norm=gnorm,
                                 build_tiles=cfg.kernel_mode in TILE_MODES,
-                                row_block=cfg.row_block, edge_tile=cfg.edge_tile)
+                                row_block=cfg.row_block, edge_tile=cfg.edge_tile,
+                                hybrid=hybrid, dim=cfg.hidden_dim)
     vs = graph.shard_nodes
 
     def rows(a, fill=0):

@@ -1,11 +1,10 @@
 """Training configuration — port of `maxk_tpu/train/config.py`.
 
 The same flags and validation messages as `train.py`, plus `--device`
-(default `cuda`). Flags the port accepts in the reference's sense but has
-not ported (`--kernel_mode hybrid|hybrid_int8`, `--validate_kernels`)
-raise `NotImplementedError` naming the ROADMAP item, as do `--kernel_mode
-pallas` and `--model gnn_res` with `--mesh_shape` > 1, which the reference
-refuses or lacks too.
+(default `cuda`). A flag the port accepts in the reference's sense but has
+not ported (`--validate_kernels`) raises `NotImplementedError` naming the
+ROADMAP item, as do `--kernel_mode pallas` and `--model gnn_res` with
+`--mesh_shape` > 1, which the reference refuses or lacks too.
 """
 
 from __future__ import annotations

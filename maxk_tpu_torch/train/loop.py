@@ -8,6 +8,13 @@ warm-up. GNNRes's BatchNorm keeps its running statistics in buffers that
 the train step updates. Step times are taken on the host clock around a
 step that ends in a device synchronize.
 
+Under `--kernel_mode hybrid|hybrid_int8` the graph carries the strip
+schedule and lives in degree-permuted node space (`sparse/graph.py`):
+`permuted_data` permutes the node arrays alike for training and
+evaluation, and checkpoints hold the parameters, which do not depend on
+the node order. AUTO builds the schedule on a CUDA card where
+`hybrid_profitable` says so at the card's rates (`wants_hybrid`).
+
 With a `checkpoint_dir`, `best/` is written on every improvement of the
 validation value, `ckpt_<epoch>` every `checkpoint_every` epochs, and a
 run with `checkpoint_every > 0` resumes from the latest `ckpt_<epoch>` at
@@ -19,7 +26,7 @@ masks an uninterrupted one would.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -28,8 +35,10 @@ import torch.nn.functional as F
 
 from maxk_tpu_torch.data.datasets import GraphData
 from maxk_tpu_torch.models.models import build_model
-from maxk_tpu_torch.ops.dispatch import TILE_MODES
+from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, TILE_MODES, missing_hybrid
+from maxk_tpu_torch.sparse.csr import CSRGraph
 from maxk_tpu_torch.sparse.graph import Graph, build_graph
+from maxk_tpu_torch.sparse.hybrid import auto_hybrid
 from maxk_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -108,15 +117,43 @@ def optimizer_from_config(cfg: TrainConfig, model: torch.nn.Module) -> Optimizer
                            lookahead_k=cfg.w_lookahead)
 
 
+def wants_hybrid(cfg: TrainConfig, csr: CSRGraph, device: torch.device) -> bool:
+    """Whether the run builds the strip schedule: under the hybrid modes,
+    and under AUTO on a CUDA card where `hybrid_profitable` says so at the
+    card's rates, with the widths the builder will take (the reference's
+    rule, `maxk_tpu/train/loop.py:83-96`, on a TPU)."""
+    if cfg.kernel_mode in HYBRID_MODES:
+        return True
+    return cfg.kernel_mode == "auto" and auto_hybrid(
+        csr, dim=cfg.hidden_dim, io_itemsize=2 if cfg.compute_dtype == "bfloat16" else 4,
+        device=device)
+
+
+def permuted_data(data: GraphData, perm) -> GraphData:
+    """`data` with every per-node array permuted by `perm` (new → old node
+    ids, a strip-schedule graph's `perm`); None leaves it unchanged."""
+    if perm is None:
+        return data
+    p = perm
+    return replace(data, features=data.features[p], labels=data.labels[p],
+                   train_mask=data.train_mask[p], val_mask=data.val_mask[p],
+                   test_mask=data.test_mask[p])
+
+
 def setup(cfg: TrainConfig, data: GraphData) -> TrainState:
     """Model, optimizer, graph and dropout generator on the run's device.
-    The edge-tile tables are built under the tile modes alone."""
+    The edge-tile tables are built under the tile modes alone, the strip
+    schedule where `wants_hybrid`; an explicit hybrid mode on a directed
+    graph raises."""
     device = resolve_device(cfg.device)
     model, gnorm = model_from_config(cfg, data)
     model.to(device)
     graph = build_graph(data.csr, norm=gnorm, device=device,
                         build_tiles=cfg.kernel_mode in TILE_MODES,
-                        row_block=cfg.row_block, edge_tile=cfg.edge_tile)
+                        row_block=cfg.row_block, edge_tile=cfg.edge_tile,
+                        hybrid=wants_hybrid(cfg, data.csr, device), dim=cfg.hidden_dim)
+    if cfg.kernel_mode in HYBRID_MODES and graph.hybrid is None:
+        raise missing_hybrid(cfg.kernel_mode)
     return TrainState(
         model=model,
         optimizer=optimizer_from_config(cfg, model),
@@ -171,7 +208,7 @@ def _device_arrays(data: GraphData, device: torch.device):
 
 def evaluate(state: TrainState, data: GraphData, metric: Optional[str] = None):
     """(train, val, test) metric; `metric` None: the dataset's."""
-    feats, labels, masks = _device_arrays(data, state.device)
+    feats, labels, masks = _device_arrays(permuted_data(data, state.graph.perm), state.device)
     accs = make_eval_step(state.model, metric or dataset_metric(data))(
         state.graph, feats, labels, masks
     )
@@ -224,7 +261,7 @@ def train(
             log(f"resumed from {path} at epoch {start_epoch}")
     train_step = make_train_step(state.model, state.optimizer, data.multilabel)
     eval_step = make_eval_step(state.model, dataset_metric(data))
-    feats, labels, masks = _device_arrays(data, device)
+    feats, labels, masks = _device_arrays(permuted_data(data, state.graph.perm), device)
 
     for epoch in range(start_epoch, cfg.epochs):
         synchronize(device)

@@ -20,8 +20,8 @@ import pytest
 import torch
 
 from maxk_tpu_torch.bench import (ablate_bricks, ablate_mask_gather, ablate_topk_sample,
-                                  kernel_bench, micro,
-                                  probe_bricks, probe_topk)
+                                  kernel_bench, micro, probe_bricks, probe_hybrid, probe_int8,
+                                  probe_topk)
 from maxk_tpu_torch.ops import gather_cuda
 from maxk_tpu_torch.ops.dispatch import resolve_mode
 
@@ -168,7 +168,8 @@ def test_pallas_mode_refuses_with_the_reference_reason():
 
 
 @pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks",
-                                   "ablate_bricks", "ablate_mask_gather", "ablate_topk_sample"])
+                                   "ablate_bricks", "ablate_mask_gather", "ablate_topk_sample",
+                                   "probe_hybrid", "probe_int8"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -177,7 +178,8 @@ def test_entry_points_default_to_the_card(entry):
     main = {"bench": bench.main, "kernel_bench": kernel_bench.main, "micro": micro.main,
             "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main,
             "ablate_bricks": ablate_bricks.main, "ablate_mask_gather": ablate_mask_gather.main,
-            "ablate_topk_sample": ablate_topk_sample.main}[entry]
+            "ablate_topk_sample": ablate_topk_sample.main, "probe_hybrid": probe_hybrid.main,
+            "probe_int8": probe_int8.main}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])
 
@@ -205,3 +207,63 @@ def test_kernel_bench_and_bench_take_the_tile_modes(mode, capsys):
     rec = bench.main(["--device", "cpu", "--scale", "0.002", "--mode", mode])
     assert rec["metric"] == f"spmm_maxk fwd nnz/s (reddit x0.002, k=32, {mode}, cpu)"
     assert json.loads(capsys.readouterr().out.splitlines()[-1]) == rec
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "hybrid_int8"])
+def test_kernel_bench_and_bench_take_the_hybrid_modes(mode, capsys):
+    """`kernel_bench --mode hybrid|hybrid_int8` validates against the plain
+    path over the permuted graph and writes the strip it built: its dtype,
+    width, tail, and whether the features were int8; the lossy mode's
+    validation takes its quantization bound on top of the exact tolerance
+    and writes both. `bench --mode hybrid*` adds the schedule to its one
+    record."""
+    from maxk_tpu_torch.bench import bench
+
+    recs = kernel_bench.main(["--device", "cpu", *TINY, "--mode", mode])
+    rec = recs[0]
+    assert len(recs) == 1 and rec["valid"] and rec["mode"] == mode
+    assert (rec["strip_dtype"], rec["strip_cols"], rec["tail_band_cols"]) == ("int8", 128, 0)
+    assert rec["feat_int8"] == (mode == "hybrid_int8") and rec["tail_tiles"] > 0
+    lossy = rec["validation"].get("lossy_bound")
+    if mode == "hybrid_int8":
+        assert 0 < lossy and rec["validation"]["tol"] == 1e-3 + lossy
+    else:
+        assert lossy is None and "tol" not in rec["validation"]
+    bf16_strip = ["--device", "cpu", *TINY, "--mode", mode, "--strip_dtype", "bfloat16",
+                  "--tail_band_cols", "128"]
+    if mode == "hybrid_int8":  # int8 features need an integer strip
+        with pytest.raises(ValueError, match="requires an integer strip"):
+            kernel_bench.main(bf16_strip)
+    else:
+        recs = kernel_bench.main(bf16_strip)
+        assert recs[0]["valid"] and recs[0]["strip_dtype"] == "bfloat16"
+    capsys.readouterr()
+    out = bench.main(["--device", "cpu", "--scale", "0.002", "--mode", mode])
+    assert out["metric"] == f"spmm_maxk fwd nnz/s (reddit x0.002, k=32, {mode}, cpu)"
+    assert out["schedule"]["strip_dtype"] == "int8"
+    assert out["schedule"]["feat_int8"] == (mode == "hybrid_int8")
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == out
+
+
+def test_kernel_bench_dispatch_check_times_the_other_arm():
+    recs = kernel_bench.main(["--device", "cpu", *TINY, "--mode", "hybrid", "--dispatch_check"])
+    check = recs[-1]
+    assert check["kind"] == "dispatch_check" and (check["picked"], check["alt"]) == \
+        ("hybrid", "segsum")
+    assert check["t_fwd_alt_ms"] > 0 and check["t_fwd_picked_ms"] == recs[0]["t_fwd_ms"]
+
+
+def test_probe_hybrid_and_probe_int8_on_cpu():
+    """probe_hybrid validates the hybrid (int8 strip, tail in 32-edge tiles)
+    and its lossy int8-feature arm against the tile scan and times every
+    arm; probe_int8's four parts run, its quantization error within half a
+    step of each column's absmax / 127."""
+    out = probe_hybrid.main(["--device", "cpu", "--scale", "0.003", "--s", "256", "--dtype",
+                             "int8", "--feat_int8", "--tail_chunks", "64", "--dim", "64"])
+    assert out["s_cols"] == 256 and out["max_rel"] <= 2e-2 and out["mean_rel"] <= 1e-3
+    assert 0 < out["int8_max_abs"] <= out["int8_bound"] + 1e-5
+    assert len(out["tail_ms"]) == 2 and "chunk64_chunk_window64" in out["tail_ms"]
+    res = probe_int8.main(["--device", "cpu", "--v", "2048", "--s", "256", "--d", "64"])
+    assert res["bf16_ms"] > 0 and res["int8_ms"] > 0 and res["int8_e2e_ms"] > 0
+    # half a step of a column's absmax / 127; the normal draws stay under 6
+    assert 0 < res["quant_abs_err_max"] <= 6.0 / 127 / 2

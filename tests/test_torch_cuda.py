@@ -647,3 +647,78 @@ def test_gather_wrappers_count_and_raise(cuda):
         gc.slab_gather(torch.empty(l2 // 1024 + 1, 256, device=cuda), i1)
     with pytest.raises(TypeError):
         gc.slab_gather(x, i1.long())
+
+
+# the strip hybrid: torch products on the card (no kernel of the port's own)
+
+
+def _norm_close(got, ref, tol):
+    err = (got.float().cpu() - ref.float().cpu()).abs().max()
+    assert err <= tol * ref.float().abs().max(), (float(err), float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_mm_f32_from_bf16_on_the_card(cuda):
+    """`torch.mm(out_dtype=float32)` of bf16 operands, a transposed view
+    included: exact products summed in f32, so within f32 rounding of the
+    CPU's widened product."""
+    from maxk_tpu_torch.ops.spmm_hybrid import _mm_f32
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((3000, 700), generator=gen).to(torch.bfloat16)
+    b = torch.randn((3000, 64), generator=gen).to(torch.bfloat16)
+    got = _mm_f32(a.to(cuda).t(), b.to(cuda))
+    assert got.dtype == torch.float32
+    _norm_close(got, a.float().t() @ b.float(), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,row0", [(3000, 0), (13, 256), (1029, 300)])
+def test_int8_strip_products_on_the_card(cuda, n, row0):
+    """`torch._int_mm` through `_strip_arms_int8`: chunks padded to a
+    multiple of 8 rows and more than 16 (13 rows, a 1029-row last chunk),
+    hub and non-hub rows; int32 results equal the CPU's exactly."""
+    from maxk_tpu_torch.ops.spmm_hybrid import _strip_arms_int8
+
+    gen = torch.Generator().manual_seed(n)
+    s, d = 256, 64
+    w = (torch.rand((n, s), generator=gen) < 0.1).to(torch.int8)
+    xq = torch.randint(-127, 128, (n, d), generator=gen, dtype=torch.int8)
+    xqh = torch.randint(-127, 128, (s, d), generator=gen, dtype=torch.int8)
+    hub, low = _strip_arms_int8(w, xq, xqh, row0, chunk=1024)
+    hub_c, low_c = _strip_arms_int8(w.to(cuda), xq.to(cuda), xqh.to(cuda), row0, chunk=1024)
+    assert torch.equal(hub_c.cpu(), hub) and torch.equal(low_c.cpu(), low)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strip_dtype", [torch.int8, torch.bfloat16])
+def test_hybrid_on_the_card_matches_the_cpu(cuda, strip_dtype):
+    """The schedule built on the card equals the CPU's; spmm_hybrid (A and
+    Aᵀ, int8 features too), spmm's gradient and maxk_spgemm under hybrid
+    on the card agree with the CPU's within 1e-5 · max|ref| (the same
+    bf16-rounded features, f32 sums in another order)."""
+    from maxk_tpu_torch.ops.spgemm import spmm
+    from maxk_tpu_torch.ops.spmm_hybrid import spmm_hybrid
+
+    csr = rmat_graph(3000, 60000, seed=5)
+    kw = dict(norm="right", hybrid=True, strip_cols=512, strip_dtype=strip_dtype)
+    gc, gd = build_graph(csr, **kw), build_graph(csr, device=cuda, **kw)
+    hc, hd = gc.hybrid, gd.hybrid
+    assert torch.equal(hd.strip.cpu(), hc.strip) and torch.equal(hd.pre.cpu(), hc.pre)
+    for f in ("block", "cols", "vals", "localrow"):
+        assert torch.equal(getattr(hd.tail_tiles, f).cpu(), getattr(hc.tail_tiles, f))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((3000, 64), generator=gen)
+    for transpose in (False, True):
+        _norm_close(spmm_hybrid(hd, x.to(cuda), transpose=transpose),
+                    spmm_hybrid(hc, x, transpose=transpose), 1e-5)
+    if strip_dtype == torch.int8:
+        _norm_close(spmm_hybrid(hd, x.to(cuda), feat_int8=True),
+                    spmm_hybrid(hc, x, feat_int8=True), 1e-5)
+    xd = x.to(cuda).requires_grad_(True)
+    spmm(gd, xd, mode="hybrid").backward(x.to(cuda))
+    _norm_close(xd.grad, spmm_hybrid(hc, x, transpose=True), 1e-5)
+    vals = torch.randn((3000, 8), generator=gen)
+    sel = torch.stack([torch.randperm(64, generator=gen)[:8] for _ in range(3000)]).int()
+    _norm_close(maxk_spgemm(gd, CBSR(vals.to(cuda), sel.to(cuda)), dim=64, mode="hybrid"),
+                maxk_spgemm(gc, CBSR(vals, sel), dim=64, mode="hybrid"), 1e-5)

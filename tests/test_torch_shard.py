@@ -117,8 +117,16 @@ def _fake_mesh(n, rank=0):
 
 
 def test_unported_schedules_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tshard.build_sharded_graph(rmat_graph(*GRAPH), _fake_mesh(2), hybrid=True)
+    """build_sharded_graph(hybrid=True) builds the rank's part of the strip
+    schedule beside its blocks (`tests/test_torch_hybrid_shard.py` holds it
+    to the JAX package's)."""
+    from maxk_tpu_torch.sparse.hybrid import degree_perm, permute_csr
+
+    csr = rmat_graph(*GRAPH)
+    g = tshard.build_sharded_graph(permute_csr(csr, degree_perm(csr)), _fake_mesh(2, 1),
+                                   hybrid=True)
+    assert g.hybrid.rank == 1 and g.hybrid.strip.shape == (100, 128)
+    assert g.fwd.num_nodes == 100
 
 
 @pytest.mark.parametrize("norm", ["right", "none"])

@@ -108,8 +108,13 @@ def test_build_graph_directed_is_not_symmetric():
 
 
 def test_build_graph_unported_schedules_raise(graphs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        build_graph(graphs[1], norm="right", hybrid=True)
+    """build_graph(hybrid=True) builds the strip schedule in permuted node
+    space (`tests/test_torch_hybrid.py` holds it to the JAX package's)."""
+    jg = jax_build_graph(graphs[0], norm="right", build_tiles=False, hybrid=True)
+    tg = build_graph(graphs[1], norm="right", hybrid=True)
+    np.testing.assert_array_equal(tg.perm, np.asarray(jg.perm))
+    assert tg.hybrid.s_cols == jg.hybrid.s_cols and tg.hybrid.num_nodes == 200
+    _assert_csr_close(jg.csr, tg.csr)
 
 
 @pytest.mark.parametrize("norm", ["right", "both"])

@@ -104,9 +104,19 @@ def test_edge_chunks_do_not_change_the_sum(graphs):
 
 @pytest.mark.parametrize("mode", ["hybrid", "hybrid_int8", "pallas"])
 def test_unported_modes_raise(graphs, mode):
-    _, tg = graphs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """pallas has no production SpMM (the reference refuses it too); the
+    hybrid modes on a graph built without a strip schedule raise the
+    reference's ValueError."""
+    jg, tg = graphs
+    if mode == "pallas":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsp.spmm(tg, torch.zeros((tg.num_nodes, 4)), mode=mode)
+        return
+    with pytest.raises(ValueError) as ref:
+        jsp.spmm(jg, jnp.zeros((jg.num_nodes, 4)), mode=mode)
+    with pytest.raises(ValueError) as got:
         tsp.spmm(tg, torch.zeros((tg.num_nodes, 4)), mode=mode)
+    assert str(got.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("mode", ["tiles_xla", "tiles_scan"])

@@ -150,8 +150,6 @@ def test_parse_args_defaults_match_jax():
 
 OUT_OF_SLICE = [
     (["--model", "gnn_res", "--mesh_shape", "2"], "ROADMAP A7"),
-    (["--kernel_mode", "hybrid"], "ROADMAP A13"),
-    (["--kernel_mode", "hybrid_int8"], "ROADMAP A13"),
     (["--kernel_mode", "pallas"], "ROADMAP B5"),
     (["--validate_kernels"], "ROADMAP A11"),
 ]
@@ -167,6 +165,7 @@ def test_out_of_slice_flags_raise(argv, item):
 @pytest.mark.parametrize("argv", [["--model", "gcn"], ["--model", "gin"], ["--mesh_shape", "2"],
                                   ["--model", "gnn_res"], ["--dataset", "ogbn-proteins"],
                                   ["--kernel_mode", "tiles_xla"], ["--kernel_mode", "tiles_scan"],
+                                  ["--kernel_mode", "hybrid"], ["--kernel_mode", "hybrid_int8"],
                                   ["--row_block", "4", "--edge_tile", "64"],
                                   ["--enable_lookahead", "--w_lookahead", "3"],
                                   ["--checkpoint_every", "5"], ["--evaluate", "ckpt"],
