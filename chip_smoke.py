@@ -28,8 +28,14 @@ scale 0.02), the tile SpMM against segsum and `torch.sparse.mm`
 share; `maxk_spgemm` under tiles_scan; `tiles_xla` at scale 0.02), and 3
 epochs of the same training under `--kernel_mode tiles_scan` with the
 sharded small case at world size 1 (`tiles_train`). After the benchmark
-path, Lookahead with checkpoints and a resume through the CLI's entry,
-and `--evaluate` on its `best/` (`lookahead_ckpt`).
+path, the campaign scripts (`campaign`: the degree sweep on two R-MAT
+graphs either side of average degree 50 through `kernel_bench` children,
+assembled with its audit and the cuSPARSE yardstick; the SpGEMM study,
+the three schedules, memcheck on the reddit ×1.0 graph still in memory,
+a ksweep arm triple, scaling, the figures, and a `--validate_kernels`
+run; K1–K5 must each launch in the process), then Lookahead with
+checkpoints and a resume through the CLI's entry, and `--evaluate` on its
+`best/` (`lookahead_ckpt`).
 Before the paths, every kernel is held against its plain version at its
 path's shapes, and timed beside its bound and, where one exists, the
 PyTorch library call that computes the same function; the CBSR densify
@@ -590,6 +596,126 @@ def phase_micro():
         t = micro.main(["--device", "cuda"])
     emit("micro", seconds=time.perf_counter() - t0,
          **{f"{k}_ms": 1e3 * s for k, s in t.items()})
+
+
+CAMPAIGN_GRAPHS = ("rmat_v65536_d20", "rmat_v65536_d100")  # either side of avg degree 50
+
+
+def phase_campaign(csr, cards: int) -> None:
+    """The campaign scripts of `maxk_tpu_torch.bench`, each at a small size
+    through its entry point: `degree_sweep` on two R-MAT graphs either side
+    of average degree 50 (one `kernel_bench` child a graph, validated, with
+    `--dispatch_check`) and `assemble_suite` on its records; `spgemm_study`
+    and `three_arms` at scale 0.02; `memcheck` A at k 8 and 32 on the
+    reddit ×1.0 graph `csr` already in memory, B at its default scale;
+    one `ksweep` arm triple for 3 epochs; `scaling` at n = min(2, cards);
+    `plots.main` over their JSON where matplotlib is installed (the phase
+    line says when it is not); and a 2-epoch `--validate_kernels` run
+    through `python -m maxk_tpu_torch`'s entry. Every record must be
+    valid, the suite's audit consistent, and `t_cusparse_ms` above 0 in
+    every record."""
+    import importlib.util
+    import tempfile
+
+    from maxk_tpu_torch.__main__ import main as cli
+    from maxk_tpu_torch.bench import (
+        assemble_suite,
+        degree_sweep,
+        ksweep,
+        memcheck,
+        plots,
+        scaling,
+        spgemm_study,
+        three_arms,
+    )
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = Path(tmp)
+        sweep = timed("degree_sweep", degree_sweep.main, [
+            "--graphs", *CAMPAIGN_GRAPHS, "--scale", "1.0", "--timeout", "300",
+            "--dir", str(t / "sweep"), "--out", str(t / "sweep.json")])
+        suite = timed("assemble_suite", assemble_suite.main, [
+            "--dir", str(t / "sweep"), "--out", str(t / "suite.json")])
+        recs = [r for r in suite["results"] if "k" in r]
+        checks = [r for f in sorted((t / "sweep").glob("*.json"))
+                  for r in json.loads(f.read_text()) if r.get("kind") == "dispatch_check"]
+        study = timed("spgemm_study", spgemm_study.main, [
+            "--scale", "0.02", "--json_out", str(t / "study.json")])
+        arms = timed("three_arms", three_arms.main, [
+            "--scale", "0.02", "--out", str(t / "three.json")])
+        mem = timed("memcheck", memcheck.run, csr, DIM, [8, 32], 0.02, "cuda")
+        timed("ksweep", ksweep.main, [
+            "--datasets", "flickr", "--models", "sage", "--k", "8", "--scale", "0.01",
+            "--epochs", "3", "--hidden_dim", "64", "--hidden_layers", "2",
+            "--json_out", str(t / "ksweep.json")])
+        n = min(2, cards)
+        scal = timed("scaling", scaling.main, [
+            "--devices", str(n), "--scale", "0.02", "--hidden_dim", "64", "--maxk", "16",
+            "--iters", "5", "--repeats", "1", "--warmup", "2",
+            "--json_out", str(t / "scaling.json")])
+        # the figures need matplotlib, which the card's machine may lack;
+        # the CPU tests render each of them from the same record layout
+        figs = None
+        if importlib.util.find_spec("matplotlib") is not None:
+            figs = timed("plots", plots.main, [
+                "--kernel", str(t / "suite.json"), "--degree", str(t / "sweep.json"),
+                "--ksweep", str(t / "ksweep.json"), "--scaling", str(t / "scaling.json"),
+                "--study", str(t / "study.json"), "--three_arms", str(t / "three.json"),
+                "--out", str(t / "figs")])
+            figs_ok = len(figs) == 6 and all(Path(f).stat().st_size > 0 for f in figs)
+        timed("validate_kernels", cli, [
+            "--dataset", "flickr", "--data_scale", "0.02", "--epochs", "2",
+            "--hidden_dim", str(DIM), "--hidden_layers", "2", "--maxk", str(K),
+            "--validate_kernels", "--path", str(t / "vk")])
+        log = (t / "vk" / "flickr_seed97" / "sage_maxk" / "train.log").read_text()
+        vk = [line.split("INFO ", 1)[-1] for line in log.splitlines()
+              if "kernel validation:" in line]
+
+    emit("campaign", seconds=seconds, total_s=sum(seconds.values()),
+         sweep_failed=sweep.get("failed", []), consistency=suite["consistency"],
+         summary=suite["summary"],
+         suite=[{f: r.get(f) for f in ("graph", "V", "E", "k", "mode", "t_fwd_ms",
+                                        "t_baseline_ms", "t_cusparse_ms", "t_cusparse_bf16_ms",
+                                        "speedup_vs_baseline", "speedup_vs_cusparse", "valid")}
+                for r in recs],
+         dispatch_checks=checks,
+         spgemm_study=[{"sparsity": r["sparsity"], "hybrid_mean_rel_err": r["hybrid_mean_rel_err"],
+                        **{a: v["total_ms"] for a, v in r.items() if isinstance(v, dict)}}
+                       for r in study],
+         three_arms=arms,
+         memcheck={"op_level": [{f: r[f] for f in ("arm", "peak_bytes", "grad_bytes")}
+                                for r in mem["op_level"]],
+                   "train_step": [{f: r[f] for f in ("arm", "peak_bytes")}
+                                  for r in mem["train_step"]]},
+         scaling=[{f: r.get(f) for f in ("arm", "n", "step_ms", "recv_bytes_per_step",
+                                          "analytic_step_ms")} for r in scal],
+         figures=len(figs) if figs is not None else "matplotlib is not installed: not rendered",
+         validate_kernels=vk)
+    require(not sweep.get("failed"), f"degree_sweep: failed graphs {sweep.get('failed')}")
+    require(len(recs) == 2 * len(CAMPAIGN_GRAPHS) and all(r.get("valid") for r in recs),
+            f"degree_sweep: {sum(bool(r.get('valid')) for r in recs)} of {len(recs)} valid")
+    require(suite["consistency"]["ok"], f"assemble_suite: {suite['consistency']['violations']}")
+    require(all(r["t_cusparse_ms"] > 0 and r["t_cusparse_bf16_ms"] for r in recs),
+            "kernel_bench: a record without its cuSPARSE times")
+    require(len(study) == 4, f"spgemm_study: {len(study)} of 4 sparsities")
+    require(all(r.get(f"{a}_valid") for r in arms for a in ("tiles_scan", "hybrid", "bricks")),
+            f"three_arms: {[{a: r.get(f'{a}_valid') for a in ('tiles_scan', 'hybrid', 'bricks')} for r in arms]}")
+    require(all(r["cusparse_ms"] > 0 for r in arms), "three_arms: no cuSPARSE time")
+    require(all(r["measured"] and r["peak_bytes"] > 0 for r in mem["op_level"] + mem["train_step"]),
+            "memcheck: an arm was not measured")
+    require(len(scal) == 4 and all(math.isfinite(r["step_ms"]) for r in scal),
+            f"scaling: {len(scal)} records")
+    require(figs is None or figs_ok, f"plots: {figs}")
+    require(len(vk) == 1 and "ok=True" in vk[0], f"--validate_kernels: {vk}")
 
 
 def phase_small_slice():
@@ -1618,7 +1744,6 @@ def main() -> int:
         torch.cuda.empty_cache()
         reset()
         phase_bench(data.csr)
-        del data
         phase_kernel_bench()
         for tag, t in phase_probes(bg, sched).items():
             checks[("spmm_bricks", tag)].update(t)
@@ -1627,6 +1752,16 @@ def main() -> int:
         bench = read("bench")
         for name, n in bench.items():
             require(n > 0, f"{name} was not launched on the benchmark path")
+
+        # the campaign scripts, on the reddit graph still in memory; the
+        # degree sweep's kernel_bench children count in their own processes
+        torch.cuda.empty_cache()
+        reset()
+        phase_campaign(data.csr, torch.cuda.device_count())
+        del data
+        campaign = read("campaign")
+        for name in ("maxk_mask", "cbsr_densify", "cbsr_sample", "topk_cbsr", "spmm_bricks"):
+            require(campaign[name] > 0, f"{name} was not launched on the campaign path")
 
         # Lookahead, checkpoints and resume, through the CLI's entry
         torch.cuda.empty_cache()

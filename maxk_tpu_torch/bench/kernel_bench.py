@@ -33,6 +33,14 @@ record adds `strip_dtype`, `strip_cols`, `tail_band_cols` and `feat_int8`
 bound (`ops/spmm_hybrid.int8_error_bound`) on top of the exact tolerance,
 and says so in `validation`. `--dispatch_check` also times the forward of
 the arm AUTO did not pick (segsum against the hybrid), once per graph.
+
+The yardstick: every record also carries `t_cusparse_ms` and
+`t_cusparse_bf16_ms`, one `torch.sparse.mm` on a CSR tensor of the same
+normalized graph against the same `x_dense` (cuSPARSE on a card, the role
+of the reference suite's `kernels/spmm_cusparse.cu`), and
+`speedup_vs_cusparse = t_cusparse_ms / t_fwd_ms`. No model path runs it.
+The CPU has no bf16 CSR product: there `t_cusparse_bf16_ms` is null and
+`cusparse_bf16_note` says why; on a card a failure raises.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -115,6 +124,31 @@ def validate_graph(graph, cbsr, dim, mode, tol=1e-3, compute_dtype=None):
             detail["lossy_bound"] = int8_error_bound(h, x, pre_applied=True)
             tol = detail["tol"] = tol + detail["lossy_bound"]
     return mean_err < tol, detail
+
+
+def cusparse_arm(csr, x: torch.Tensor) -> dict:
+    """`torch.sparse.mm` on a CSR tensor of `csr` (built once a dtype,
+    outside the timing) against `x` in f32 and in bf16: seconds a call by
+    `micro.timeit`, or None for bf16 where the CPU lacks the product, with
+    the reason under "note"."""
+    from maxk_tpu_torch.bench.micro import timeit
+
+    nnz, v = int(csr.indptr[-1]), csr.num_nodes
+    crow, col = csr.indptr.long(), csr.indices[:nnz].long()
+    out = {"f32": None, "bf16": None, "note": None}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            a = torch.sparse_csr_tensor(crow, col, csr.values[:nnz].to(dtype), (v, v))
+        xd = x.to(dtype)
+        try:
+            out[tag] = timeit(torch.sparse.mm, a, xd, iters=4)
+        except (RuntimeError, NotImplementedError) as e:
+            if x.is_cuda or dtype != torch.bfloat16:
+                raise
+            out["note"] = f"no bf16 CSR product on the CPU: {type(e).__name__}: {str(e)[:160]}"
+        del a, xd
+    return out
 
 
 def _vdot_f32(a, b):
@@ -205,6 +239,11 @@ def main(argv=None):
         print(f"{n} {name} {args.dim} - cusparse_role {t_base*1e3:.4f}", flush=True)
         t_base16 = timeit(lambda x: spmm(graph, x.to(bf16), mode=base_mode), x_dense, iters=4)
         print(f"{n} {name} {args.dim} - cusparse_role_bf16 {t_base16*1e3:.4f}", flush=True)
+        cus = cusparse_arm(g, x_dense)
+        t_cus16 = None if cus["bf16"] is None else cus["bf16"] * 1e3
+        print(f"{n} {name} {args.dim} - cusparse {cus['f32']*1e3:.4f}", flush=True)
+        print(f"{n} {name} {args.dim} - cusparse_bf16 "
+              f"{'nan' if t_cus16 is None else f'{t_cus16:.4f}'}", flush=True)
         del x_dense
 
         def build_schedule():
@@ -290,6 +329,10 @@ def main(argv=None):
                 "t_baseline_bf16_ms": t_base16 * 1e3,
                 "fwd_gnnz_s": e_real / t_fwd / 1e9,
                 "speedup_vs_baseline": t_base / t_fwd,
+                # the yardstick: torch.sparse.mm (cuSPARSE on a card)
+                "t_cusparse_ms": cus["f32"] * 1e3,
+                "t_cusparse_bf16_ms": t_cus16,
+                "speedup_vs_cusparse": cus["f32"] / t_fwd,
                 # the compact (V, k) gradient of the CBSR backward against the
                 # masked path's (V, dim) bf16 one, each at its real dtype
                 "bwd_grad_bytes_cbsr": v * k * vals.element_size(),
@@ -297,6 +340,8 @@ def main(argv=None):
                 "cbsr_val_dtype": str(io_dtype).split(".")[-1],
                 "mask_dtype": str(io_dtype).split(".")[-1],
             }
+            if cus["note"]:
+                rec["cusparse_bf16_note"] = cus["note"]
             if hybrid:  # the schedule built, and whether its features were int8
                 sched = schedule_record(h)
                 rec.update(strip_dtype=sched["strip_dtype"], strip_cols=h.s_cols,

@@ -6,15 +6,16 @@ and `maxk_tpu/parallel/train.py`) and of `maxk_tpu/parallel/audit.py`:
 instead of parsing compiled HLO, every call adds what it moves to the
 mesh's `ByteCounter`.
 
-Receive bytes follow `audit.recv_bytes_per_device`'s ring model, per
-device, n ranks:
+Receive bytes follow the reference's ring model (`maxk_tpu/parallel/audit.py`'s
+`recv_bytes_per_device`), per device, n ranks:
 
   all_gather      (n-1)/n of the gathered (full) array
   reduce_scatter  (n-1) blocks the size of the local result
   all_reduce      2·(n-1)/n of the array
 
 so the counts of one aggregation's forward and backward equal
-`audit.model_recv_bytes_fwd_bwd`. `payload` is the bytes each call hands
+`maxk_tpu_torch.parallel.audit.model_recv_bytes_fwd_bwd` (the
+reference's model, copied). `payload` is the bytes each call hands
 to the collective from this rank (nonzero at n = 1 too).
 """
 

@@ -72,7 +72,7 @@ def hybrid_case(mesh, graph_args: tuple, norm: str, s_cols: int, x, ct, vals, se
     the sharded strip hybrid (f32 strip of `s_cols` columns) of the
     degree-permuted `rmat_graph(*graph_args)`; the inputs are in permuted
     node order. With the all_reduce calls and payload bytes of each op's
-    forward + backward."""
+    forward + backward, and its receive bytes of every collective."""
     csr = rmat_graph(*graph_args)
     graph = build_sharded_graph(permute_csr(csr, degree_perm(csr)), mesh, norm=norm,
                                 hybrid=True, strip_cols=s_cols, strip_dtype=torch.float32)
@@ -83,13 +83,15 @@ def hybrid_case(mesh, graph_args: tuple, norm: str, s_cols: int, x, ct, vals, se
     y = spmm(graph, xt, mode="hybrid")
     y.backward(_local(mesh, ct, vs))
     out.update(spmm_y=y.detach().numpy(), spmm_dx=xt.grad.numpy(),
-               spmm_reduce=(mesh.bytes.calls["all_reduce"], mesh.bytes.payload["all_reduce"]))
+               spmm_reduce=(mesh.bytes.calls["all_reduce"], mesh.bytes.payload["all_reduce"]),
+               spmm_recv=mesh.bytes.total_recv())
     vt = _local(mesh, vals, vs).requires_grad_(True)
     mesh.bytes.reset()
     y = maxk_spgemm(graph, CBSR(vt, _local(mesh, sel, vs)), dim=d, mode="hybrid")
     y.backward(_local(mesh, ct, vs))
     out.update(maxk_y=y.detach().numpy(), maxk_dvals=vt.grad.numpy(),
-               maxk_reduce=(mesh.bytes.calls["all_reduce"], mesh.bytes.payload["all_reduce"]))
+               maxk_reduce=(mesh.bytes.calls["all_reduce"], mesh.bytes.payload["all_reduce"]),
+               maxk_recv=mesh.bytes.total_recv(), padded_nodes=graph.padded_nodes)
     return out
 
 

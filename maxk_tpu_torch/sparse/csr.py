@@ -148,3 +148,25 @@ def add_self_loops(g: CSRGraph) -> CSRGraph:
     rows = np.concatenate([m.row, np.arange(v)])
     cols = np.concatenate([m.col, np.arange(v)])
     return csr_from_coo(rows, cols, v)
+
+
+def symmetrize(g: CSRGraph) -> CSRGraph:
+    """Make undirected by adding reverse edges (deduplicated, weight 1)."""
+    m = csr_to_scipy(g).tocoo()
+    rows = np.concatenate([m.row, m.col])
+    cols = np.concatenate([m.col, m.row])
+    return csr_from_coo(rows, cols, g.num_nodes)
+
+
+def reorder_rcm(g: CSRGraph):
+    """Reverse-Cuthill-McKee bandwidth-reducing reordering on the host.
+
+    Returns (reordered graph, perm) with perm[i] = old id of new row i;
+    apply the same perm to the node arrays: `x_new = x[perm]`."""
+    import scipy.sparse.csgraph as csgraph
+
+    m = csr_to_scipy(g)
+    perm = np.asarray(csgraph.reverse_cuthill_mckee(m, symmetric_mode=True))
+    m2 = m[perm][:, perm].tocsr()
+    m2.sort_indices()
+    return _from_scipy(m2), perm

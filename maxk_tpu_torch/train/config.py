@@ -1,10 +1,9 @@
 """Training configuration — port of `maxk_tpu/train/config.py`.
 
 The same flags and validation messages as `train.py`, plus `--device`
-(default `cuda`). A flag the port accepts in the reference's sense but has
-not ported (`--validate_kernels`) raises `NotImplementedError` naming the
-ROADMAP item, as do `--kernel_mode pallas` and `--model gnn_res` with
-`--mesh_shape` > 1, which the reference refuses or lacks too.
+(default `cuda`). `--kernel_mode pallas` and `--model gnn_res` with
+`--mesh_shape` > 1 raise `NotImplementedError` naming the ROADMAP item, as
+the reference refuses or lacks them too.
 """
 
 from __future__ import annotations
@@ -82,11 +81,14 @@ class TrainConfig:
             from maxk_tpu_torch.parallel.train import check_sharded_model
 
             check_sharded_model(self.model)
-        if self.validate_kernels:
-            raise NotImplementedError(
-                "--validate_kernels is not ported yet: ROADMAP A11 "
-                "(bench/kernel_bench validation)"
-            )
+
+
+HELP = {
+    "validate_kernels": "before the first step, hold maxk_spgemm under --kernel_mode against "
+                        "the plain path on the features' first hidden_dim columns (MaxK runs "
+                        "only); a failure raises. The row-partitioned path (--mesh_shape > 1) "
+                        "does not read it, as in the reference",
+}
 
 
 def parse_args(argv=None) -> TrainConfig:
@@ -96,9 +98,9 @@ def parse_args(argv=None) -> TrainConfig:
         flag = "--" + f.name
         default = getattr(defaults, f.name)
         if f.type == "bool" or isinstance(default, bool):
-            p.add_argument(flag, action="store_true", default=default)
+            p.add_argument(flag, action="store_true", default=default, help=HELP.get(f.name))
         else:
-            p.add_argument(flag, type=type(default), default=default)
+            p.add_argument(flag, type=type(default), default=default, help=HELP.get(f.name))
     ns = p.parse_args(argv)
     cfg = TrainConfig(**vars(ns))
     cfg.validate()

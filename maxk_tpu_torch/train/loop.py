@@ -21,6 +21,10 @@ run with `checkpoint_every > 0` resumes from the latest `ckpt_<epoch>` at
 the next epoch (`train/checkpoint.py`). The dropout masks come from one
 generator whose state the checkpoint carries, so a resumed run draws the
 masks an uninterrupted one would.
+
+`--validate_kernels` (MaxK runs only) holds `maxk_spgemm` under the run's
+kernel mode against the plain path before the first step, as the
+reference's loop does, and raises when they disagree.
 """
 
 from __future__ import annotations
@@ -259,6 +263,21 @@ def train(
         if path:
             start_epoch = restore_state(state, restore_checkpoint(path))
             log(f"resumed from {path} at epoch {start_epoch}")
+    if cfg.validate_kernels and cfg.nonlinear == "maxk":
+        # maxk_spgemm under the run's mode against the plain path, on the
+        # MaxK CBSR of the features' first hidden_dim columns, zero-padded
+        # (`maxk_tpu/train/loop.py:246-262`); a strip-hybrid graph is in
+        # permuted node space on both sides, so nothing is un-permuted
+        from maxk_tpu_torch.bench.kernel_bench import validate_graph
+        from maxk_tpu_torch.sparse.cbsr import maxk_cbsr
+
+        xs = torch.as_tensor(data.features[:, : cfg.hidden_dim], dtype=torch.float32)
+        xs = F.pad(xs, (0, cfg.hidden_dim - xs.shape[1])).to(device)
+        ok, detail = validate_graph(state.graph, maxk_cbsr(xs, cfg.maxk), cfg.hidden_dim,
+                                    cfg.kernel_mode)
+        log(f"kernel validation: ok={ok} {detail}")
+        if not ok:
+            raise RuntimeError(f"kernel validation failed: {detail}")
     train_step = make_train_step(state.model, state.optimizer, data.multilabel)
     eval_step = make_eval_step(state.model, dataset_metric(data))
     feats, labels, masks = _device_arrays(permuted_data(data, state.graph.perm), device)

@@ -97,13 +97,17 @@ def test_kernel_bench_records_have_the_reference_keys(monkeypatch, capsys):
                         lambda k, v: None if "cache" in k else update(k, v))
     ref = jax_kernel_bench.main(["--platform", "cpu", "--mode", "segsum", *TINY])
     assert len(got) == len(ref) == 1
-    assert set(got[0]) == set(ref[0])
+    # the reference's keys, and the cuSPARSE yardstick's beside them
+    assert set(got[0]) == set(ref[0]) | {"t_cusparse_ms", "t_cusparse_bf16_ms",
+                                         "speedup_vs_cusparse", "cusparse_bf16_note"}
     assert got[0]["valid"] and got[0]["cbsr_val_dtype"] == "float32"
     assert set(got[0]["validation"]) == set(ref[0]["validation"])
     assert (got[0]["V"], got[0]["k"], got[0]["mode"]) == (ref[0]["V"], 8, "segsum")
     assert [line.split()[:5] for line in out] == [
         ["0", "flickr", "256", "-", "cusparse_role"],
         ["0", "flickr", "256", "-", "cusparse_role_bf16"],
+        ["0", "flickr", "256", "-", "cusparse"],
+        ["0", "flickr", "256", "-", "cusparse_bf16"],
         *[["0", "flickr", "256", "8", arm] for arm in
           ("maxk_mask", "maxk_fwd", "maxk_fwd_bwd", "maxk_fwd_cbsr", "maxk_fwd_bwd_cbsr")],
     ]
@@ -169,17 +173,28 @@ def test_pallas_mode_refuses_with_the_reference_reason():
 
 @pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks",
                                    "ablate_bricks", "ablate_mask_gather", "ablate_topk_sample",
-                                   "probe_hybrid", "probe_int8"])
+                                   "probe_hybrid", "probe_int8", "degree_sweep", "ksweep",
+                                   "memcheck", "spgemm_study", "three_arms", "scaling"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
-    from maxk_tpu_torch.bench import bench
+    from maxk_tpu_torch.bench import (
+        bench,
+        degree_sweep,
+        ksweep,
+        memcheck,
+        scaling,
+        spgemm_study,
+        three_arms,
+    )
 
     main = {"bench": bench.main, "kernel_bench": kernel_bench.main, "micro": micro.main,
             "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main,
             "ablate_bricks": ablate_bricks.main, "ablate_mask_gather": ablate_mask_gather.main,
             "ablate_topk_sample": ablate_topk_sample.main, "probe_hybrid": probe_hybrid.main,
-            "probe_int8": probe_int8.main}[entry]
+            "probe_int8": probe_int8.main, "degree_sweep": degree_sweep.main,
+            "ksweep": ksweep.main, "memcheck": memcheck.main, "spgemm_study": spgemm_study.main,
+            "three_arms": three_arms.main, "scaling": scaling.main}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])
 

@@ -722,3 +722,18 @@ def test_hybrid_on_the_card_matches_the_cpu(cuda, strip_dtype):
     sel = torch.stack([torch.randperm(64, generator=gen)[:8] for _ in range(3000)]).int()
     _norm_close(maxk_spgemm(gd, CBSR(vals.to(cuda), sel.to(cuda)), dim=64, mode="hybrid"),
                 maxk_spgemm(gc, CBSR(vals, sel), dim=64, mode="hybrid"), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["segsum", "hybrid"])
+def test_validate_kernels_on_the_card(cuda, mode, tmp_path):
+    """`--validate_kernels` through the CLI's entry on the card: the hook
+    holds maxk_spgemm (K2 inside) against the plain path and passes."""
+    from maxk_tpu_torch.__main__ import main as cli
+
+    cli(["--dataset", "flickr", "--data_scale", "0.01", "--epochs", "2", "--hidden_dim", "64",
+         "--hidden_layers", "2", "--maxk", "8", "--kernel_mode", mode, "--validate_kernels",
+         "--path", str(tmp_path)])
+    log = (tmp_path / "flickr_seed97" / "sage_maxk" / "train.log").read_text()
+    lines = [line for line in log.splitlines() if "kernel validation:" in line]
+    assert len(lines) == 1 and "ok=True" in lines[0], lines

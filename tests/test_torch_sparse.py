@@ -135,3 +135,42 @@ def test_build_graph_tiles_match_jax(graphs, norm, device_builder):
         for f in ("block", "cols", "vals", "localrow"):
             np.testing.assert_array_equal(getattr(tt, f).numpy(), np.asarray(getattr(jt, f))[:nt])
     assert build_graph(t, norm=norm).tiles is None
+
+
+def _isolated_directed():
+    """A directed graph over 60 nodes whose edges touch only the first 40."""
+    rng = np.random.default_rng(11)
+    rows, cols = rng.integers(0, 40, 300), rng.integers(0, 40, 300)
+    return jcsr.csr_from_coo(rows, cols, 60), tcsr.csr_from_coo(rows, cols, 60)
+
+
+A2_CASES = {
+    "rmat200": lambda: (jax_rmat_graph(200, 1500, seed=123), rmat_graph(200, 1500, seed=123)),
+    "rmat500": lambda: (jax_rmat_graph(500, 4000, seed=1), rmat_graph(500, 4000, seed=1)),
+    "rmat64": lambda: (jax_rmat_graph(64, 300, seed=7), rmat_graph(64, 300, seed=7)),
+    "isolated": _isolated_directed,
+}
+
+
+@pytest.mark.parametrize("case", list(A2_CASES))
+def test_symmetrize_matches_jax(case):
+    j, t = A2_CASES[case]()
+    js, ts = jcsr.symmetrize(j), tcsr.symmetrize(t)
+    _assert_csr_close(js, ts)
+    m = tcsr.csr_to_scipy(ts)
+    assert (m != m.T).nnz == 0  # undirected
+
+
+@pytest.mark.parametrize("case", list(A2_CASES))
+def test_reorder_rcm_matches_jax(case):
+    """The same permutation and the same reordered CSR, exactly; the
+    right-normalized values move with their edges."""
+    j, t = A2_CASES[case]()
+    j, t = jcsr.with_norm(jcsr.symmetrize(j), "right"), tcsr.with_norm(tcsr.symmetrize(t), "right")
+    (jg, jperm), (tg, tperm) = jcsr.reorder_rcm(j), tcsr.reorder_rcm(t)
+    np.testing.assert_array_equal(tperm, np.asarray(jperm))
+    np.testing.assert_array_equal(np.sort(tperm), np.arange(t.num_nodes))
+    np.testing.assert_array_equal(np.asarray(jg.indptr), tg.indptr.numpy())
+    np.testing.assert_array_equal(np.asarray(jg.indices), tg.indices.numpy())
+    np.testing.assert_array_equal(np.asarray(jg.values), tg.values.numpy())
+    assert tg.indptr.dtype == torch.int32 and tg.values.dtype == torch.float32

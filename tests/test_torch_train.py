@@ -2,8 +2,9 @@
 Adam steps from imported parameters (dropout 0) at 1e-4 relative, for
 MaxK-SAGE and for GNNRes (with its batch statistics); the CLI's
 validation; flags the port parses and flags it does not port yet; CLI runs
-of GNNRes and ogbn-proteins; `--device cuda` without a card; and a run
-with jax blocked from import."""
+of GNNRes and ogbn-proteins; `--validate_kernels` (passes under segsum
+and the hybrid, raises on a noisy SpMM, is skipped under relu);
+`--device cuda` without a card; and a run with jax blocked from import."""
 
 import json
 import os
@@ -151,7 +152,6 @@ def test_parse_args_defaults_match_jax():
 OUT_OF_SLICE = [
     (["--model", "gnn_res", "--mesh_shape", "2"], "ROADMAP A7"),
     (["--kernel_mode", "pallas"], "ROADMAP B5"),
-    (["--validate_kernels"], "ROADMAP A11"),
 ]
 
 
@@ -169,12 +169,63 @@ def test_out_of_slice_flags_raise(argv, item):
                                   ["--row_block", "4", "--edge_tile", "64"],
                                   ["--enable_lookahead", "--w_lookahead", "3"],
                                   ["--checkpoint_every", "5"], ["--evaluate", "ckpt"],
-                                  ["--save_model"]],
+                                  ["--save_model"], ["--validate_kernels"]],
                          ids=lambda a: " ".join(a))
 def test_ported_flags_parse_as_in_jax(argv):
     ref, got = jcfg.parse_args(argv), tcfg.parse_args(argv)
     for name, value in vars(ref).items():
         assert getattr(got, name) == value, name
+
+
+class _Log:
+    def __init__(self):
+        self.lines = []
+
+    def info(self, msg):
+        self.lines.append(msg)
+
+
+def _validated_run(**kw):
+    """2 epochs of `loop.train` with `--validate_kernels` on the tiny graph;
+    the log lines."""
+    _, tdata = _data()
+    log = _Log()
+    cfg = tcfg.TrainConfig(device="cpu", epochs=2, hidden_dim=32, hidden_layers=2, maxk=4,
+                           validate_kernels=True, **kw)
+    tloop.train(cfg, tdata, logger=log)
+    return [line for line in log.lines if line.startswith("kernel validation")]
+
+
+@pytest.mark.parametrize("mode", ["segsum", "hybrid"])
+def test_validate_kernels_passes_on_cpu(mode):
+    """The hook runs once, before the first step, and passes: under the
+    hybrid both sides of the comparison use the permuted graph."""
+    lines = _validated_run(kernel_mode=mode)
+    assert len(lines) == 1 and lines[0].startswith("kernel validation: ok=True"), lines
+
+
+def test_validate_kernels_raises_on_a_noisy_spmm(monkeypatch):
+    from maxk_tpu_torch.ops import spgemm
+
+    impl = spgemm._spmm_impl
+    gen = torch.Generator().manual_seed(0)
+    def noisy(*a, **kw):
+        y = impl(*a, **kw)
+        return y + 0.1 * torch.randn(y.shape, generator=gen)
+
+    monkeypatch.setattr(spgemm, "_spmm_impl", noisy)
+    with pytest.raises(RuntimeError, match="kernel validation failed"):
+        _validated_run(kernel_mode="segsum")
+
+
+def test_validate_kernels_is_skipped_under_relu(monkeypatch):
+    from maxk_tpu_torch.bench import kernel_bench
+
+    def boom(*a, **kw):
+        raise AssertionError("validate_graph ran under relu")
+
+    monkeypatch.setattr(kernel_bench, "validate_graph", boom)
+    assert _validated_run(kernel_mode="segsum", nonlinear="relu") == []
 
 
 @pytest.mark.parametrize("argv,metric_range", [
