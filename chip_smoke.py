@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `maxk_tpu_torch/csrc/`, holds each against
-its plain PyTorch version at the main path's shapes, runs the op
-`maxk_spgemm` on full-scale synthetic reddit against its plain path, then
+its plain PyTorch version at the main path's shapes (the segsum path's CSR
+kernels, K9 `spmm_csr` over A and Aᵀ, K10 `spgemm_cbsr` and K11
+`sspmm_cbsr`, on full-scale synthetic reddit: `csr_kernels`), runs the op
+`maxk_spgemm` under segsum (K10, K11) on that graph against its plain
+path, then
 trains MaxK-SAGE (4×256, k=32, dropout 0.5, lr 0.01 — the reference's
 reddit launch) on full-scale synthetic reddit for 10 epochs through the
 port's `train()`, and GNNRes (4×256) for 3 epochs on the same graph. Then
@@ -277,6 +280,106 @@ def phase_kernels(v: int):
         sample_check(z, csel, "topk_cbsr", f"topk_cbsr_{tag}")
         del x, y, take, y0, take0, vals, sel, sel64, cvals, csel, cvals0, csel0, out, ref, z
     return res
+
+
+def _csr_bytes(csr) -> int:
+    """A CSR's arrays and its segment table, in bytes: read once."""
+    t = csr.segments
+    return sum(a.numel() * a.element_size() for a in (
+        csr.indptr, csr.indices, csr.values, t.row, t.begin, t.part, t.multi_row,
+        t.multi_part0, t.multi_nseg))
+
+
+def phase_csr_kernels(graph) -> dict:
+    """K9 over A and Aᵀ, K10 over A and K11 over Aᵀ (k = 32), f32 and bf16,
+    at reddit ×1.0, against their plain versions on the card (`index_add_`:
+    the order of its f32 sum varies), timed beside the bound, the plain
+    version and `torch.sparse.mm` on the same CSR (K10: on the densified
+    features; K11: Aᵀ @ g, before the sample). Each element within
+    2·n·2⁻²⁴·Σ|terms| + ulp·|ref| of the plain version's (n the row's
+    edges: both sum the same rounded products in f32 in other orders, and
+    round once); two launches of each give the same bits. Returns the
+    checks and K9's f32 seconds a live edge over A."""
+    import torch
+
+    from maxk_tpu_torch.bench.micro import bound
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.ops.cbsr_cuda import densify_plain, sample_plain
+    from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
+    from maxk_tpu_torch.sparse.csr import CSRGraph
+
+    v, e_live = graph.num_nodes, int(graph.csr.indptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    vals32 = torch.randn((v, K), generator=gen, device="cuda")
+    sel = torch.randint(0, DIM, (v, K), generator=gen, device="cuda", dtype=torch.int32)
+    res, lines = {}, []
+
+    def check(name, key, kernel, plain, abs_terms, csr, library, nbytes, **fields):
+        out, again = kernel(), kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        deg = torch.diff(csr.indptr.long()).double()[:, None]
+        ulp = 2.0**-7 if out.dtype == torch.bfloat16 else 2.0**-23
+        err = (out.double() - ref.double()).abs()
+        # Σ|terms| ×1.01 for the terms' own bf16 rounding
+        slack = 2.0 * deg * 2.0**-24 * 1.01 * abs_terms().double() + ulp * ref.double().abs()
+        ratio = float((err / slack.clamp_min(1e-30)).max())
+        same = torch.equal(_bits(out), _bits(again))
+        rec = dict(max_abs_err=float(err.max()), max_rel_err=float(err.max() / ref.abs().max()),
+                   max_err_over_bound=ratio, bit_equal_runs=same,
+                   ms=cuda_ms(kernel, TIMED), plain_ms=cuda_ms(plain, 3), **bound(nbytes))
+        del out, again, ref, err, slack
+        try:
+            rec["library_ms"] = cuda_ms(library, 5)
+        except (NotImplementedError, RuntimeError) as e:  # the library's gap
+            rec["library_ms"], rec["library_error"] = None, f"{type(e).__name__}: {e}"[:200]
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        emit("kernel", name=name, check=key, library="torch.sparse.mm", **fields, **rec)
+        require(same, f"{name} {key}: two launches differ")
+        require(ratio <= 1.0, f"{name} {key}: {ratio} of its bound from the plain version")
+        res[(name, key)] = {f: rec[f] for f in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by")}
+
+    def abs_csr(csr):
+        return CSRGraph(csr.indptr, csr.indices, csr.values.abs())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        isz = torch.finfo(dtype).bits // 8
+        for op, csr in (("A", graph.csr), ("At", graph.csc)):
+            x = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
+            a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
+                                        csr.values.to(dtype), (v, v))
+            check("spmm_csr", f"{op}_{tag}", lambda: sc.spmm_csr_cuda(csr, x),
+                  lambda: sc.spmm_csr_plain(csr, x),
+                  lambda: spmm_segsum(abs_csr(csr), x.abs().float()), csr,
+                  lambda: torch.sparse.mm(a, x), _csr_bytes(csr) + 2 * v * DIM * isz,
+                  operand=op, dtype=tag, nodes=v, edges=e_live, dim=DIM)
+            del a
+        vals = vals32.to(dtype)
+        a = torch.sparse_csr_tensor(graph.csr.indptr.long(), graph.csr.indices.long(),
+                                    graph.csr.values.to(dtype), (v, v))
+        dense = densify_plain(vals, sel, DIM)
+        check("spgemm_cbsr", tag, lambda: sc.spgemm_cbsr_cuda(graph.csr, vals, sel, DIM),
+              lambda: sc.spgemm_cbsr_plain(graph.csr, vals, sel, DIM),
+              lambda: spmm_segsum(abs_csr(graph.csr), dense.abs().float()), graph.csr,
+              lambda: torch.sparse.mm(a, dense),
+              _csr_bytes(graph.csr) + v * K * (isz + 4) + v * DIM * isz,
+              operand="A", dtype=tag, nodes=v, edges=e_live, dim=DIM, k=K,
+              library_input="densified CBSR")
+        del a, dense
+        at = torch.sparse_csr_tensor(graph.csc.indptr.long(), graph.csc.indices.long(),
+                                     graph.csc.values.to(dtype), (v, v))
+        ct = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
+        check("sspmm_cbsr", tag, lambda: sc.sspmm_cbsr_cuda(graph.csc, ct, sel),
+              lambda: sc.sspmm_cbsr_plain(graph.csc, ct, sel),
+              lambda: sample_plain(spmm_segsum(abs_csr(graph.csc), ct.abs().float()), sel),
+              graph.csc, lambda: torch.sparse.mm(at, ct),
+              _csr_bytes(graph.csc) + v * DIM * isz + v * K * (4 + isz),
+              operand="At", dtype=tag, nodes=v, edges=e_live, dim=DIM, k=K,
+              library_input="Aᵀ @ g, not sampled")
+        del at, ct, x, vals
+    return res, res[("spmm_csr", "A_float32")]["ms"] * 1e-3 / e_live
 
 
 def _bits(t):
@@ -748,7 +851,7 @@ def phase_sharded_small(wrappers: dict) -> dict:
     small scale the same way, whose sharded eval ranks the all-gathered
     rows for ROC-AUC (`gathered_rocauc`): it must equal the single-device
     `rocauc` on the same logits, bit for bit. Returns the kernel launches of the proteins case, counted from
-    0 (the sharded path: K4, K2, K3)."""
+    0 (the sharded segsum path: K4, K10, K9, K3)."""
     import torch
 
     from maxk_tpu_torch.data.datasets import load_dataset
@@ -797,7 +900,7 @@ def phase_sharded_small(wrappers: dict) -> dict:
                         f"single-device {extra['single_rocauc']} on the same logits")
                 require(all(0.0 < x < 1.0 for x in extra["sharded_rocauc"]),
                         f"sharded proteins: ROC-AUC {extra['sharded_rocauc']} outside (0, 1)")
-                for name in ("topk_cbsr", "cbsr_densify", "cbsr_sample"):
+                for name in ("topk_cbsr", "spgemm_cbsr", "spmm_csr", "cbsr_sample"):
                     require(launches[name] > 0,
                             f"{name} was not launched on the sharded proteins case")
             emit("sharded_small", model=model, dataset=d.name, world_size=1,
@@ -829,8 +932,9 @@ def phase_data():
 
 
 def phase_op(graph):
-    """maxk_spgemm forward and forward+backward, bf16 compute, against the
-    plain path (plain densify and sample around the same SpMM)."""
+    """maxk_spgemm under segsum (K10 forward, K11 backward), forward and
+    forward+backward, bf16 compute, against the plain path (plain densify
+    and sample around the plain segment-sum SpMM)."""
     import torch
 
     from maxk_tpu_torch.ops.cbsr_cuda import densify_plain, sample_plain
@@ -846,11 +950,11 @@ def phase_op(graph):
     bf16 = torch.bfloat16
 
     def fwd():
-        return maxk_spgemm(graph, CBSR(vals, sel), dim=DIM, compute_dtype=bf16)
+        return maxk_spgemm(graph, CBSR(vals, sel), dim=DIM, mode="segsum", compute_dtype=bf16)
 
     def fwd_bwd():
         va = vals.detach().requires_grad_(True)
-        y = maxk_spgemm(graph, CBSR(va, sel), dim=DIM, compute_dtype=bf16)
+        y = maxk_spgemm(graph, CBSR(va, sel), dim=DIM, mode="segsum", compute_dtype=bf16)
         torch.vdot(y.flatten(), ct.flatten()).backward()
         return y, va.grad
 
@@ -864,9 +968,9 @@ def phase_op(graph):
     y, dvals = fwd_bwd()
     y_ref, dvals_ref = plain_fwd_bwd()
     torch.cuda.synchronize()
-    # both paths sum in f32 (index_add_ atomics, order varies run to run)
-    # and round once to bf16: they may differ by one bf16 ulp, 2^-7 of the
-    # largest magnitude at most
+    # both paths sum in f32 (the plain one with index_add_ atomics, whose
+    # order varies run to run) and round once to bf16: they may differ by
+    # one bf16 ulp, 2^-7 of the largest magnitude at most
     tol = 1e-2
     err_y = ((y - y_ref).abs().max() / y_ref.abs().max()).item()
     err_d = ((dvals - dvals_ref).abs().max() / dvals_ref.abs().max()).item()
@@ -885,14 +989,15 @@ def phase_op(graph):
 
 
 def phase_train(data):
-    """The main path's training, under `--kernel_mode segsum`: the baseline
-    that tiles_train's and hybrid_train's steps and losses are held to,
-    whatever AUTO picks on this graph."""
+    """The main path's training, under `--kernel_mode segsum` (K1 and K9 in
+    every layer): the baseline that tiles_train's and hybrid_train's steps
+    and losses are held to, whatever AUTO picks on this graph; then one
+    more step under the profiler (`step_profile`: busy share, top kernels)."""
     import torch
 
     from maxk_tpu_torch.train.config import TrainConfig
     from maxk_tpu_torch.train.logging import get_logger
-    from maxk_tpu_torch.train.loop import train
+    from maxk_tpu_torch.train.loop import _device_arrays, make_train_step, train
 
     cfg = TrainConfig(dataset="reddit", model="sage", epochs=EPOCHS, lr=0.01,
                       hidden_dim=DIM, hidden_layers=LAYERS, maxk=K, dropout=0.5,
@@ -901,22 +1006,30 @@ def phase_train(data):
     t0 = time.perf_counter()
     state = train(cfg, data, logger=get_logger(name="chip_smoke"), warmup_epochs=2)
     wall = time.perf_counter() - t0
-    losses = state.losses
+    peak = torch.cuda.max_memory_allocated()
+    losses, best_val, times = state.losses, state.best_val, state.epoch_times
+    step_ms = 1e3 * sum(times) / len(times)
+    # one more step, profiled: where the segsum step's device time goes
+    step = make_train_step(state.model, state.optimizer, data.multilabel)
+    feats, labels, masks = _device_arrays(data, state.device)
+    profile = device_busy(lambda: step(state.graph, feats, labels, masks[0], state.generator),
+                          top=10)
+    del step, feats, labels, masks, state
     emit("train", nodes=data.csr.num_nodes, edges=data.csr.nnz, layers=LAYERS,
          hidden=DIM, k=K, dropout=0.5, lr=0.01, epochs=EPOCHS, losses=losses,
-         step_ms_post_warmup=1e3 * sum(state.epoch_times) / len(state.epoch_times),
-         step_ms=[1e3 * s for s in state.epoch_times], best_val=state.best_val,
-         wall_s=wall, max_memory_allocated=torch.cuda.max_memory_allocated())
+         step_ms_post_warmup=step_ms, step_ms=[1e3 * t for t in times], best_val=best_val,
+         wall_s=wall, max_memory_allocated=peak, step_profile=profile)
     require(len(losses) == EPOCHS and all(math.isfinite(x) for x in losses),
             f"training: non-finite or missing losses {losses}")
     require(losses[-1] < losses[0], f"training: loss did not fall {losses}")
-    return losses, 1e3 * sum(state.epoch_times) / len(state.epoch_times)
+    return losses, step_ms
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, top: int = 0) -> dict:
     """One call of `fn()` under `torch.profiler` (CPU and CUDA): its wall
     time by CUDA events, the summed time of the device kernels the profiler
-    recorded, and their share of the wall (None when it recorded none).
+    recorded, and their share of the wall (None when it recorded none);
+    with `top`, the `top` kernel names with the most device time (ms each).
     The profiler's own host cost lowers the share."""
     import torch
     from torch.autograd import DeviceType
@@ -933,8 +1046,14 @@ def device_busy(fn) -> dict:
     wall = start.elapsed_time(end)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return {"profiled_wall_ms": wall, "kernel_ms": busy, "kernels": len(kernels),
-            "busy_share": busy / wall if kernels else None}
+    out = {"profiled_wall_ms": wall, "kernel_ms": busy, "kernels": len(kernels),
+           "busy_share": busy / wall if kernels else None}
+    if top:
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        out["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return out
 
 
 def phase_host_tiles(data, graph):
@@ -1230,8 +1349,8 @@ def phase_host_hybrid(data):
 def phase_hybrid_op(hgraph):
     """On reddit ×1.0 with its strip schedule `hgraph` (permuted, right norm):
     `spmm(mode="hybrid")` over A and Aᵀ, f32 and bf16, against
-    `spmm(mode="segsum")` and `torch.sparse.mm` on the same inputs (two runs
-    of 3 calls a mode, in turns), each element within 2^-6 · (|A| @ |x|) +
+    `spmm(mode="segsum")` (K9) and `torch.sparse.mm` on the same inputs (two
+    runs of 3 calls a mode, in turns), each element within 2^-6 · (|A| @ |x|) +
     2^-7 · |ref| + 1e-5 · max|ref| of segsum's (each side rounds a term at
     most twice to bf16, a scale and a feature or a product, a relative 2^-8
     each, and its bf16 result once); the A f32 call's pieces timed
@@ -1274,7 +1393,7 @@ def phase_hybrid_op(hgraph):
             for order in (("hybrid", "segsum"), ("segsum", "hybrid")):
                 for m in order:
                     fn = (lambda: hybrid_call(x)) if m == "hybrid" else (
-                        lambda: spmm_segsum(csr, x))
+                        lambda: spmm(view, x, mode="segsum"))
                     runs[m].append(cuda_ms(fn, 3))
             t = {m: sum(r) / len(r) for m, r in runs.items()}
             a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
@@ -1357,7 +1476,7 @@ def phase_hybrid_op(hgraph):
             f"maxk_spgemm hybrid vs segsum: {rel_y}, {rel_d} > {tol}")
 
 
-def phase_hybrid_train(data, segsum_losses, segsum_step_ms):
+def phase_hybrid_train(data, segsum_losses, segsum_step_ms, k9_sec_per_edge):
     """MaxK-SAGE 4×256, k=32, dropout 0.5, lr 0.01 on reddit ×1.0 under
     `--kernel_mode hybrid` for TILE_EPOCHS epochs (K1 in every layer, the
     strip hybrid its aggregation): the step beside the segsum step of the
@@ -1367,7 +1486,8 @@ def phase_hybrid_train(data, segsum_losses, segsum_step_ms):
     strip features are rounded to bf16). Then the sharded small case at
     world size 1 under hybrid (K4, K2, K3 over the rank's strip) against
     the single-device hybrid on the CPU, and the AUTO rule's decision on
-    this graph with its numbers."""
+    this graph with its numbers, beside K9's seconds a live edge measured in
+    this run (`k9_sec_per_edge`) and the measured step ratio."""
     import torch
 
     from maxk_tpu_torch.data.datasets import load_dataset
@@ -1406,7 +1526,8 @@ def phase_hybrid_train(data, segsum_losses, segsum_step_ms):
     v, e = data.csr.num_nodes, int(data.csr.indptr[-1])
     s = hyb.auto_strip_cols(v, e_live=e, dim=DIM, strip_itemsize=1, rates=rates)
     emit("auto_rule", nodes=v, edges=e, s_cols=s, matmul_flops=rates.matmul_flops,
-         gather_sec_per_edge=rates.gather_sec_per_edge, hbm_bytes=rates.hbm_bytes,
+         gather_sec_per_edge=rates.gather_sec_per_edge,
+         k9_sec_per_edge_this_run=k9_sec_per_edge, hbm_bytes=rates.hbm_bytes,
          strip_products_s=3.0 * -(-v // 128) * 128 * s * DIM * 2 / rates.matmul_flops,
          gather_s=e * rates.gather_sec_per_edge,
          auto_picks_hybrid=hyb.auto_hybrid(data.csr, dim=DIM, device="cuda"),
@@ -1522,7 +1643,9 @@ def phase_sharded_train(data, wrappers: dict) -> dict:
     require(len(losses) == SHARDED_EPOCHS and all(math.isfinite(x) for x in losses),
             f"sharded training: non-finite or missing losses {losses}")
     require(losses[-1] < losses[0], f"sharded training: loss did not fall {losses}")
-    for name in ("topk_cbsr", "cbsr_densify", "cbsr_sample"):
+    # AUTO is segsum at reddit x1.0 on the card: K4, K10 forward, K9 and K3
+    # backward
+    for name in ("topk_cbsr", "spgemm_cbsr", "spmm_csr", "cbsr_sample"):
         require(launches[name] > 0, f"{name} was not launched on the sharded path")
     require(launches["topk_cbsr"] >= LAYERS * SHARDED_EPOCHS,
             f"topk_cbsr launched {launches['topk_cbsr']} < {LAYERS * SHARDED_EPOCHS} times")
@@ -1646,10 +1769,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from maxk_tpu_torch.ops import cbsr_cuda, gather_cuda, spmm_bricks, topk_cuda
+    from maxk_tpu_torch.ops import cbsr_cuda, gather_cuda, spmm_bricks, spmm_csr, topk_cuda
 
-    # name: (wrapper, source, the TPU kernel it replaces, the check whose
-    # numbers the kernels line reports)
+    # name: (wrapper, source, the TPU kernel it replaces (K9-K11: the
+    # reference's XLA function), the check whose numbers the kernels line
+    # reports)
     wrappers = {
         "maxk_mask": (topk_cuda.maxk_mask_cuda, "maxk_tpu_torch/csrc/maxk_mask.cu",
                       "maxk_tpu/ops/topk_pallas.py:99", "float32"),
@@ -1667,6 +1791,12 @@ def main() -> int:
                        "maxk_tpu/bench/micro.py:204", "float32"),
         "take_along_rows": (gather_cuda.take_along_rows_cuda, "maxk_tpu_torch/csrc/gather.cu",
                             "maxk_tpu/bench/probe_topk.py:96", "262144_float32"),
+        "spmm_csr": (spmm_csr.spmm_csr_cuda, "maxk_tpu_torch/csrc/spmm_csr.cu",
+                     "maxk_tpu/ops/spmm_xla.py:21", "A_float32"),
+        "spgemm_cbsr": (spmm_csr.spgemm_cbsr_cuda, "maxk_tpu_torch/csrc/spmm_csr.cu",
+                        "maxk_tpu/ops/spgemm.py:157", "bfloat16"),
+        "sspmm_cbsr": (spmm_csr.sspmm_cbsr_cuda, "maxk_tpu_torch/csrc/spmm_csr.cu",
+                       "maxk_tpu/ops/spgemm.py:224", "bfloat16"),
     }
     counts = {}
 
@@ -1684,6 +1814,8 @@ def main() -> int:
         phase_build()
         data, graph = phase_data()
         checks = phase_kernels(graph.num_nodes)
+        csr_checks, k9_sec_per_edge = phase_csr_kernels(graph)
+        checks.update(csr_checks)
         bg, sched = brick_inputs()
         checks.update(phase_bench_kernels(bg, sched))
         phase_launch_path()
@@ -1693,14 +1825,17 @@ def main() -> int:
             {name: w[0] for name, w in wrappers.items()})
         emit("launches", path="sharded_proteins", **counts["sharded_proteins"])
 
-        # the single-device main path: the op, then training
+        # the single-device main path: the op, then training (segsum: K1 and
+        # K9 in the model, K10 and K11 in maxk_spgemm)
         reset()
         phase_op(graph)
         torch.cuda.empty_cache()
         segsum_losses, segsum_step = phase_train(data)
         single = read("single_device")
-        for name in ("maxk_mask", "cbsr_densify", "cbsr_sample"):
+        for name in ("maxk_mask", "spmm_csr", "spgemm_cbsr", "sspmm_cbsr"):
             require(single[name] > 0, f"{name} was not launched on the main path")
+        require(single["spmm_csr"] >= 2 * LAYERS * EPOCHS,
+                f"spmm_csr launched {single['spmm_csr']} < {2 * LAYERS * EPOCHS} times")
         require(single["maxk_mask"] >= LAYERS * EPOCHS,
                 f"maxk_mask launched {single['maxk_mask']} < {LAYERS * EPOCHS} times")
 
@@ -1730,7 +1865,7 @@ def main() -> int:
         phase_hybrid_op(hgraph)
         del hgraph
         torch.cuda.empty_cache()
-        phase_hybrid_train(data, segsum_losses, segsum_step)
+        phase_hybrid_train(data, segsum_losses, segsum_step, k9_sec_per_edge)
         hybrid = read("hybrid")
         for name in ("maxk_mask", "topk_cbsr", "cbsr_densify", "cbsr_sample"):
             require(hybrid[name] > 0, f"{name} was not launched on the hybrid path")

@@ -166,7 +166,7 @@ def main(argv=None):
     from maxk_tpu_torch.ops.topk_cuda import maxk_mask_fast
     from maxk_tpu_torch.sparse import hybrid as hyb
     from maxk_tpu_torch.sparse.cbsr import CBSR
-    from maxk_tpu_torch.sparse.csr import with_norm
+    from maxk_tpu_torch.sparse.csr import with_norm, with_segments
     from maxk_tpu_torch.sparse.graph import Graph
     from maxk_tpu_torch.sparse.meta import build_edge_tiles_device
     from maxk_tpu_torch.train.loop import resolve_device
@@ -223,7 +223,7 @@ def main(argv=None):
             raise ValueError(f"--mode {mode}: {name} is not undirected, so it has no strip "
                              "schedule")
         g_raw = g
-        g = with_norm(g, "right")
+        g = with_segments(with_norm(g, "right"))  # the CSR kernels' table, built once
         # the library arm: plain PyTorch over the tile schedule on a card, as
         # the reference's cuSPARSE role (`kernels/main.cu`) off the CPU
         base_mode = "segsum" if mode == "segsum" or device.type == "cpu" else "tiles_scan"

@@ -16,8 +16,10 @@ i.e. the call's own working set (`peak_bytes`).
   B. one train step (flickr at `--train_scale`, segsum, dropout 0.5): relu
      against maxk at each k, measured the same way.
 
-The port's segsum is edge-chunked (`ops/spmm_xla.EDGE_CHUNK`), so its peak
-is not the reference's (E, D) gather scratch. On the CPU nothing is
+The port's segsum is edge-chunked (`ops/spmm_xla.EDGE_CHUNK`) on the CPU
+and the CSR kernels on a card (`ops/spmm_csr.py`, whose scratch is the f32
+partial rows of rows longer than a segment), so its peak is not the
+reference's (E, D) gather scratch. On the CPU nothing is
 measured: the measured fields are null and `"measured": false`; the exact
 bytes are written all the same.
 
@@ -34,8 +36,9 @@ import sys
 
 import torch
 
-SEGSUM_NOTE = ("segsum runs in edge chunks (ops/spmm_xla.EDGE_CHUNK), so its peak is not the "
-               "reference's (E, D) gather scratch")
+SEGSUM_NOTE = ("segsum runs in edge chunks (ops/spmm_xla.EDGE_CHUNK) on the CPU and as the CSR "
+               "kernels (ops/spmm_csr.py: f32 partial rows of hub segments) on a card, so its "
+               "peak is not the reference's (E, D) gather scratch")
 
 
 def log(*a):

@@ -52,7 +52,7 @@ def main(argv=None) -> list:
     from maxk_tpu_torch.ops.topk_cuda import maxk_cbsr_fast
     from maxk_tpu_torch.sparse import hybrid as hyb
     from maxk_tpu_torch.sparse.cbsr import CBSR, cbsr_densify
-    from maxk_tpu_torch.sparse.csr import with_norm
+    from maxk_tpu_torch.sparse.csr import with_norm, with_segments
     from maxk_tpu_torch.sparse.graph import Graph
     from maxk_tpu_torch.sparse.meta import build_edge_tiles_device
     from maxk_tpu_torch.train.loop import resolve_device
@@ -81,7 +81,7 @@ def main(argv=None) -> list:
     hybrid = hyb.build_hybrid(
         graw, s_cols=hyb.auto_strip_cols(v, e_live=e_live0, dim=args.dim,
                                          rates=hyb.card_rates(device)), norm="none")
-    g = with_norm(graw, "none")
+    g = with_segments(with_norm(graw, "none"))  # the CSR kernels' table, built once
     e_real = int((g.values != 0).sum())
     tiles = build_edge_tiles_device(g) if args.mode in TILE_MODES else None
     graph = Graph(csr=g, csc=g, tiles=tiles, tiles_t=tiles)

@@ -48,6 +48,14 @@ SIGNATURES = {
     "take_rows_f32": (_P, _P, _P, _I, _I, _I, _P),
     "take_rows_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "l2_cache_bytes": (ctypes.POINTER(_I),),
+    # CSR (3) + segment table (6) + features, [selectors, merged CBSR (2),]
+    # output, partials
+    "spmm_csr_f32": (_P,) * 12 + (_I,) * 4 + (_P,),
+    "spmm_csr_bf16": (_P,) * 12 + (_I,) * 4 + (_P,),
+    "spgemm_cbsr_f32": (_P,) * 15 + (_I,) * 6 + (_P,),
+    "spgemm_cbsr_bf16": (_P,) * 15 + (_I,) * 6 + (_P,),
+    "sspmm_cbsr_f32": (_P,) * 13 + (_I,) * 5 + (_P,),
+    "sspmm_cbsr_bf16": (_P,) * 13 + (_I,) * 5 + (_P,),
 }
 
 _lib = None

@@ -1,7 +1,8 @@
 """SpMM implementation selection.
 
-Port of `maxk_tpu/ops/dispatch.py`. The port's SpMMs are the edge-chunked
-gather + index_add_ (SEGSUM) and the edge-tile SpMMs (TILES_XLA, the
+Port of `maxk_tpu/ops/dispatch.py`. The port's SpMMs are the segment sum
+(SEGSUM: the CSR kernels of `ops/spmm_csr.py` on a card, the edge-chunked
+gather + index_add_ on the CPU) and the edge-tile SpMMs (TILES_XLA, the
 one-shot form; TILES_SCAN, the chunked one) of `ops/spmm_xla.py`, and the
 strip hybrid of `ops/spmm_hybrid.py` (HYBRID; HYBRID_INT8, its lossy
 int8-feature form, which AUTO never picks). AUTO resolves to HYBRID when

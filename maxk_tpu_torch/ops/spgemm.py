@@ -8,10 +8,10 @@ Port of `maxk_tpu/ops/spgemm.py`, as autograd Functions:
 
 Normalization is folded into the edge values, so the backward is exactly
 Aᵀ. maxk_spgemm keeps only the (V, k) selector between forward and
-backward; densify and sample are the CUDA kernels of `ops/cbsr_cuda.py`
-on CUDA tensors. `compute_dtype` casts the values before densify and the
-cotangent before the Aᵀ SpMM; the SpMM still sums in f32, and the output
-is cast back to the values' dtype.
+backward; where it densifies and samples, those are the CUDA kernels of
+`ops/cbsr_cuda.py` on CUDA tensors. `compute_dtype` casts the values
+before densify and the cotangent before the Aᵀ SpMM; the SpMM still sums
+in f32, and the output is cast back to the values' dtype.
 
 On a `parallel.shard.ShardedGraph` (one rank's row blocks) the same ops
 run the row-partitioned scheme of `spgemm.py:51-81,156-189`: spmm
@@ -21,8 +21,14 @@ all_gathers the compressed CBSR (values cast to `compute_dtype` first),
 densifies and aggregates the local block, and its backward samples the
 reduce-scattered cotangent at the local selectors.
 
-The SpMM is `spmm_segsum` under SEGSUM, and under AUTO on a graph without
-a strip schedule; under TILES_XLA and TILES_SCAN it runs over the graph's
+The SpMM is the CSR kernel `spmm_csr` (K9, `ops/spmm_csr.py`; the plain
+`spmm_segsum` on the CPU) under SEGSUM, and under AUTO on a graph without
+a strip schedule; there maxk_spgemm runs the paper's pair on one device,
+`spgemm_cbsr` (K10, densify and SpMM in one kernel) forward and
+`sspmm_cbsr` (K11, the Aᵀ SpMM sampled at the selectors) backward, and
+its sharded forward runs K10 over the rank's block after the CBSR
+all_gather (its backward keeps the Aᵀ block, the reduce-scatter and K3).
+Under TILES_XLA and TILES_SCAN it runs over the graph's
 edge-tile tables (`build_graph(build_tiles=True)`, `build_sharded_graph(
 build_tiles=True)`), which must exist. A rank's block always takes
 `spmm_tiles_scan`, as in the reference. Under HYBRID and HYBRID_INT8 (and
@@ -44,8 +50,9 @@ import torch
 
 from maxk_tpu_torch.ops.cbsr_cuda import densify, sample
 from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, KernelMode, missing_hybrid, resolve_mode
+from maxk_tpu_torch.ops.spmm_csr import spgemm_cbsr, spmm_csr, sspmm_cbsr
 from maxk_tpu_torch.ops.spmm_hybrid import spmm_hybrid, spmm_hybrid_sharded
-from maxk_tpu_torch.ops.spmm_xla import spmm_segsum, spmm_tiles_scan, spmm_tiles_xla
+from maxk_tpu_torch.ops.spmm_xla import spmm_tiles_scan, spmm_tiles_xla
 from maxk_tpu_torch.parallel.collectives import all_gather_rows, reduce_scatter_rows
 from maxk_tpu_torch.parallel.shard import ShardedGraph
 from maxk_tpu_torch.sparse.cbsr import CBSR
@@ -56,7 +63,7 @@ def _local_spmm(csr, tiles, x: torch.Tensor, mode: str, sharded: bool = False) -
     tile modes (the scan on a rank's block, `sharded`)."""
     resolved = resolve_mode(mode, tiles is not None)
     if resolved == KernelMode.SEGSUM:
-        return spmm_segsum(csr, x)
+        return spmm_csr(csr, x)
     if resolved in HYBRID_MODES:  # a rank's block without a strip schedule
         raise missing_hybrid(resolved)
     if tiles is None:
@@ -76,6 +83,12 @@ def _hybrid_mode(graph, mode: str):
     if graph.hybrid is None:
         raise missing_hybrid(resolved)
     return resolved
+
+
+def _segsum(graph, mode: str) -> bool:
+    """Whether a one-device graph's SpMM under `mode` is the CSR segment sum."""
+    return (_hybrid_mode(graph, mode) is None
+            and resolve_mode(mode, graph.tiles is not None) == KernelMode.SEGSUM)
 
 
 def _spmm_impl(graph, x: torch.Tensor, mode: str, transpose: bool) -> torch.Tensor:
@@ -135,6 +148,8 @@ class _MaxKSpGEMM(torch.autograd.Function):
             if h is not None:  # the pre-scale folded into the values, as below
                 x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
                 y = spmm_hybrid_sharded(h, x, graph.mesh, pre_applied=True)
+            elif resolve_mode(mode, graph.fwd_tiles is not None) == KernelMode.SEGSUM:
+                y = spgemm_cbsr(graph.fwd, vals, sel, dim)
             else:
                 y = _local_spmm(graph.fwd, graph.fwd_tiles, densify(vals, sel, dim), mode,
                                 sharded=True)
@@ -146,6 +161,8 @@ class _MaxKSpGEMM(torch.autograd.Function):
             h = graph.hybrid
             x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
             y = spmm_hybrid(h, x, pre_applied=True, feat_int8=hybrid == KernelMode.HYBRID_INT8)
+        elif _segsum(graph, mode):
+            y = spgemm_cbsr(graph.csr, vals, sel, dim)
         else:
             y = _spmm_impl(graph, densify(vals, sel, dim), mode, transpose=False)
         return y.to(ctx.vals_dtype)
@@ -155,8 +172,12 @@ class _MaxKSpGEMM(torch.autograd.Function):
         (sel,) = ctx.saved_tensors
         if ctx.compute_dtype is not None:
             g = g.to(ctx.compute_dtype)
-        z = _spmm_impl(ctx.graph, g.contiguous(), ctx.mode, transpose=True)
-        dvals = sample(z, sel).to(ctx.vals_dtype)
+        graph = ctx.graph
+        if not isinstance(graph, ShardedGraph) and _segsum(graph, ctx.mode):
+            dvals = sspmm_cbsr(graph.csc, g.contiguous(), sel)
+        else:
+            dvals = sample(_spmm_impl(graph, g.contiguous(), ctx.mode, transpose=True), sel)
+        dvals = dvals.to(ctx.vals_dtype)
         return dvals, None, None, None, None, None
 
 

@@ -11,7 +11,9 @@ taken in chunks of `EDGE_CHUNK`: the one-shot form builds an (E, D)
 intermediate, about 81 GB at full reddit (79M live edges × 256 × 4 B). The
 product is taken in x's dtype and the sum in f32 (f64 for f64 x), rounded
 once to x's dtype. On a CUDA device `index_add_` adds with atomics, so the
-order of the sum, and its last bits, change from run to run.
+order of the sum, and its last bits, change from run to run. It is the
+plain version of the CSR kernels (`ops/spmm_csr.py`), which the SEGSUM
+path runs on a card, and the oracle of the other SpMMs.
 
 `spmm_tiles_xla` and `spmm_tiles_scan` run over the edge-tile tables of
 `sparse/meta.py`: per tile, the (T, D) gathered rows contracted against the

@@ -35,7 +35,13 @@ import numpy as np
 import torch
 
 from maxk_tpu_torch.sparse import hybrid as hyb
-from maxk_tpu_torch.sparse.csr import CSRGraph, _from_scipy, csr_to_scipy, with_norm
+from maxk_tpu_torch.sparse.csr import (
+    CSRGraph,
+    _from_scipy,
+    csr_to_scipy,
+    with_norm,
+    with_segments,
+)
 from maxk_tpu_torch.sparse.meta import (
     EDGE_TILE,
     ROW_BLOCK,
@@ -203,7 +209,8 @@ def build_sharded_graph(
     blocks. With `hybrid`, `csr` must already be degree-permuted and
     raw-value-symmetric (callers permute node data alike), and the rank's
     part of the strip schedule is built (`build_sharded_hybrid`, tail tile
-    width `tail_edge_tile`); the CSR blocks are still built."""
+    width `tail_edge_tile`); the CSR blocks are still built. Both blocks
+    carry their segment tables (`csr.with_segments`), built on the device."""
     n = mesh.world_size
     shyb = None
     if hybrid:
@@ -217,8 +224,8 @@ def build_sharded_graph(
         bwd_tiles = build_edge_tiles(bwd, row_block, edge_tile).to(mesh.device)
     v = csr.num_nodes
     return ShardedGraph(
-        fwd=fwd.to(mesh.device),
-        bwd=bwd.to(mesh.device),
+        fwd=with_segments(fwd.to(mesh.device)),
+        bwd=with_segments(bwd.to(mesh.device)),
         num_nodes=v,
         padded_nodes=-(-v // n) * n,
         num_shards=n,

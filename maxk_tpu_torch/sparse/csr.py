@@ -6,6 +6,14 @@ transpose (CSC-as-CSR of Aᵀ) is built on the host with scipy.
 
 Tensors live on whatever device they were moved to (`CSRGraph.to`);
 the host-side builders return CPU tensors.
+
+`row_segments` cuts every row into segments of at most `SEG_EDGES` edges,
+the schedule of the CSR kernels (`ops/spmm_csr.py`): one warp a segment,
+so a hub row is spread over many warps, and the partial sums of a row of
+several segments are added in segment order by a second pass. The port's
+own (the reference sums with `segment_sum`); `with_segments` attaches the
+table to a CSR, which `sparse/graph.build_graph` and
+`parallel/shard.build_sharded_graph` do once per CSR on its device.
 """
 
 from __future__ import annotations
@@ -16,6 +24,44 @@ from typing import Optional
 import numpy as np
 import torch
 
+# edges a segment: a warp's work in the CSR kernels (the paper's warp4
+# schedule gives a warp at most 64 nonzeros; at D = 256 a segment of 256
+# edges gathers 256 KB, and its partial sum costs 2 KB of traffic more)
+SEG_EDGES = 256
+
+
+@dataclass(frozen=True)
+class RowSegments:
+    """Every row of a CSR cut into segments of at most `seg_edges` edges, in
+    CSR order; an empty row is one empty segment.
+
+    row, begin: (S,) int32 each segment's row and first edge; it ends at
+                min(begin + seg_edges, indptr[row + 1])
+    part:       (S,) int32 its row of the partial-sum buffer, or -1 where
+                the row is this one segment (written straight to the output)
+    multi_row, multi_part0, multi_nseg: (M,) int32 each row of several
+                segments, its first partial row and its segment count
+    num_parts:  the partial rows, the sum of multi_nseg
+    """
+
+    row: torch.Tensor
+    begin: torch.Tensor
+    part: torch.Tensor
+    multi_row: torch.Tensor
+    multi_part0: torch.Tensor
+    multi_nseg: torch.Tensor
+    num_parts: int
+    seg_edges: int
+
+    @property
+    def num_segments(self) -> int:
+        return self.row.shape[0]
+
+    def to(self, device) -> "RowSegments":
+        moved = {f: getattr(self, f).to(device) for f in
+                 ("row", "begin", "part", "multi_row", "multi_part0", "multi_nseg")}
+        return RowSegments(num_parts=self.num_parts, seg_edges=self.seg_edges, **moved)
+
 
 @dataclass(frozen=True)
 class CSRGraph:
@@ -24,11 +70,14 @@ class CSRGraph:
     indptr:  (V+1,) int32 row pointers
     indices: (E,)   int32 column indices
     values:  (E,)   float32 edge weights (normalization folded in)
+    segments: its `RowSegments`, or None (the CSR kernels then build one
+              a call)
     """
 
     indptr: torch.Tensor
     indices: torch.Tensor
     values: torch.Tensor
+    segments: Optional[RowSegments] = None
 
     @property
     def num_nodes(self) -> int:
@@ -60,7 +109,41 @@ class CSRGraph:
             indptr=self.indptr.to(device),
             indices=self.indices.to(device),
             values=self.values.to(device),
+            segments=None if self.segments is None else self.segments.to(device),
         )
+
+
+def row_segments(g: CSRGraph, seg_edges: int = SEG_EDGES) -> RowSegments:
+    """The segment table of `g`, built on its device."""
+    if seg_edges < 1:
+        raise ValueError(f"seg_edges={seg_edges} must be >= 1")
+    dev = g.indptr.device
+    indptr = g.indptr.long()
+    nseg = torch.clamp((torch.diff(indptr) + seg_edges - 1) // seg_edges, min=1)
+    total = int(nseg.sum())
+    row = torch.repeat_interleave(torch.arange(g.num_nodes, device=dev), nseg, output_size=total)
+    first = torch.cumsum(nseg, 0) - nseg
+    local = torch.arange(total, device=dev) - first[row]
+    multi = nseg > 1
+    mseg = torch.where(multi, nseg, 0)
+    part0 = torch.cumsum(mseg, 0) - mseg
+    multi_row = torch.nonzero(multi).flatten()
+    return RowSegments(
+        row=row.int(),
+        begin=(indptr[row] + local * seg_edges).int(),
+        part=torch.where(multi[row], part0[row] + local, -1).int(),
+        multi_row=multi_row.int(),
+        multi_part0=part0[multi_row].int(),
+        multi_nseg=nseg[multi_row].int(),
+        num_parts=int(mseg.sum()),
+        seg_edges=seg_edges,
+    )
+
+
+def with_segments(g: CSRGraph, seg_edges: int = SEG_EDGES) -> CSRGraph:
+    """`g` carrying its segment table."""
+    return CSRGraph(indptr=g.indptr, indices=g.indices, values=g.values,
+                    segments=row_segments(g, seg_edges))
 
 
 def _from_scipy(m) -> CSRGraph:

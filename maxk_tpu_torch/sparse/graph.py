@@ -16,7 +16,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from maxk_tpu_torch.sparse.csr import CSRGraph, csr_to_scipy, csr_transpose, with_norm
+from maxk_tpu_torch.sparse.csr import (
+    CSRGraph,
+    csr_to_scipy,
+    csr_transpose,
+    with_norm,
+    with_segments,
+)
 from maxk_tpu_torch.sparse.meta import (
     EDGE_TILE,
     ROW_BLOCK,
@@ -71,7 +77,8 @@ def build_graph(
     strip_dtype: Optional[torch.dtype] = None,
 ) -> Graph:
     """Fold `norm` into the edge values (`csr.with_norm`), build Aᵀ on the
-    host, and move both to `device` (None keeps the input's device).
+    host, and move both to `device` (None keeps the input's device),
+    where each gets its segment table (`csr.with_segments`).
 
     symmetric=None detects A == Aᵀ after normalization and then shares the
     arrays. `build_tiles` adds the edge-tile tables of A and Aᵀ (R =
@@ -118,6 +125,8 @@ def build_graph(
     if device is not None:
         g = g.to(device)
         gt = g if symmetric else gt.to(device)
+    g = with_segments(g)
+    gt = g if symmetric else with_segments(gt)
     tiles = tiles_t = None
     if build_tiles:
         def tables(a: CSRGraph) -> EdgeTiles:

@@ -67,10 +67,12 @@ class Rates:
 # CPU runs, where there is no card to measure
 V5E = Rates(gather_sec_per_edge=9e-9, matmul_flops=1.5e14, hbm_bytes=16e9, strip_budget=8e9)
 
-# measured on NVIDIA H100 80GB HBM3 at its 700.00 W power limit:
-# `spmm_segsum` over reddit x1.0's 79,037,673 live edges in 279.83 ms
-# (chip_smoke.py's tiles_op phase)
-H100_GATHER_SEC_PER_EDGE = 279.83e-3 / 79_037_673
+# measured on NVIDIA H100 80GB HBM3 at its 700.00 W power limit: the plain
+# gather SpMM on a card, the CSR kernel K9 (`ops/spmm_csr.spmm_csr`, f32,
+# D = 256), over reddit x1.0's 79,037,673 live edges in 10.5436 ms
+# (chip_smoke.py's csr_kernels phase); the index_add_ segsum it replaced
+# took 279.83 ms
+H100_GATHER_SEC_PER_EDGE = 10.5436e-3 / 79_037_673
 # the bf16 x bf16 -> f32 strip product (233,088 x 16,384)ᵀ @ (233,088 x 256)
 # at 760.15 TFLOP/s, on the same card (`python -m
 # maxk_tpu_torch.bench.probe_int8`, part A)

@@ -649,6 +649,260 @@ def test_gather_wrappers_count_and_raise(cuda):
         gc.slab_gather(x, i1.long())
 
 
+# the segsum path's CSR kernels: K9-K11 (ops/spmm_csr.py)
+
+
+def _csr_graph(v=3000, e=60_000, seed=0):
+    """A directed graph with random weights, on the CPU: rows 0 and 1 of A
+    hubs of several segments, rows 10-29 empty, column 2 in every row (a hub
+    row of Aᵀ), columns past v - 20 in no row (empty rows of Aᵀ)."""
+    import numpy as np
+
+    from maxk_tpu_torch.sparse.csr import csr_from_coo
+
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([rng.integers(0, v, e), np.zeros(5000, np.int64),
+                           np.ones(700, np.int64), np.arange(v)])
+    cols = np.concatenate([rng.integers(0, v, e), rng.integers(0, v, 5700), np.full(v, 2)])
+    keep = ((rows < 10) | (rows >= 30)) & (cols < v - 20)
+    rows, cols = rows[keep], cols[keep]
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return build_graph(csr_from_coo(rows, cols, v, vals, dedup=False))
+
+
+def _check_segments(out, ref, csr, abs_ref, dtype):
+    """`out` (the kernel's, on the card) against `ref` (the plain version's
+    on the CPU), both (rows of csr, ·): bit-equal on rows of one segment
+    (the same f32 sum in the same order); on the others within the f32
+    sum's regrouping, 2·n·2⁻²⁴·Σ|terms| with n the row's edges (`abs_ref`
+    is Σ|terms|), plus one ulp of `dtype` at |ref| for the final rounding."""
+    from maxk_tpu_torch.sparse.csr import SEG_EDGES
+
+    out = out.cpu()
+    deg = torch.diff(csr.indptr.long())
+    one = deg <= SEG_EDGES
+    assert bool(one.any()) and bool((~one).any())
+    assert torch.equal(_bits(out[one]), _bits(ref[one]))
+    ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-23
+    tol = 2.0 * deg[:, None].double() * 2.0**-24 * abs_ref + ulp * ref.double().abs()
+    err = (out.double() - ref.double()).abs()
+    assert bool((err <= tol)[~one].all()), float((err - tol).max())
+
+
+def _abs_spmm(csr, x_abs):
+    """|A| @ |x| in f64 on the CPU: Σ|terms| of each element (×1.01 for the
+    terms' own bf16 rounding)."""
+    from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
+    from maxk_tpu_torch.sparse.csr import CSRGraph
+
+    a = CSRGraph(csr.indptr, csr.indices, csr.values.abs())
+    return 1.01 * spmm_segsum(a, x_abs.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 50, 300, 8])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_spmm_csr_kernel(cuda, d, dtype, transpose):
+    """K9 over A and Aᵀ against `spmm_segsum` on the CPU. D = 256 and 8 move
+    16-byte vectors; D = 50 (and bf16 at 300) rows are no multiple of 16
+    bytes and move element by element; D = 300 in f32 takes two column
+    passes. Empty rows are zeros; two launches give the same bits."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    g = _csr_graph()
+    csr = g.csc if transpose else g.csr
+    x = torch.randn((g.num_nodes, d), generator=torch.Generator().manual_seed(d)).to(dtype)
+    gc, xc = csr.to(cuda), x.to(cuda)
+    out = sc.spmm_csr_cuda(gc, xc)
+    again = sc.spmm_csr_cuda(gc, xc)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (g.num_nodes, d)
+    assert torch.equal(_bits(out), _bits(again))
+    _check_segments(out, sc.spmm_csr_plain(csr, x), csr, _abs_spmm(csr, x.abs()), dtype)
+    empty = torch.diff(csr.indptr) == 0
+    assert bool(empty.any()) and not _bits(out.cpu()[empty]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_csr_kernel_unaligned_features(cuda, dtype):
+    """x one element past a 16-byte boundary: the kernel moves elements one
+    by one, with the same bits as the vector path."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    g = _csr_graph(seed=1)
+    v, d = g.num_nodes, 256
+    flat = torch.empty(v * d + 1, dtype=dtype, device=cuda)
+    x = flat[1:].view(v, d)
+    x.copy_(torch.randn((v, d), generator=torch.Generator(device=cuda).manual_seed(3),
+                        device=cuda).to(dtype))
+    assert x.data_ptr() % 16
+    gc = g.csr.to(cuda)
+    out = sc.spmm_csr_cuda(gc, x)
+    ref = sc.spmm_csr_cuda(gc, x.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+def _selectors(v, k, d, seed):
+    """(v, k) selectors repeating inside a 32-slot chunk and across chunks,
+    some outside [0, d), and values."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sel = rng.integers(-2, d + 2, (v, k)).astype(np.int32)
+    if k > 3:
+        sel[:, 1] = sel[:, 0]
+        sel[:, k - 1] = sel[:, 2]
+    vals = rng.standard_normal((v, k)).astype(np.float32)
+    return torch.from_numpy(vals), torch.from_numpy(sel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(32, 256), (7, 50), (40, 256), (64, 2000)])
+def test_spgemm_cbsr_kernel(cuda, k, d, dtype):
+    """K10 against a sequential slot-order densify (`_sequential_densify`,
+    rounded once) and `spmm_segsum` on the CPU: k = 40, 64 take the two-row
+    path (equal selectors across 32-slot chunks), D = 2000 two column tiles."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
+
+    g = _csr_graph(seed=2)
+    v = g.num_nodes
+    vals, sel = _selectors(v, k, d, k + d)
+    vals = vals.to(dtype)
+    dense = torch.from_numpy(_sequential_densify(vals.float().numpy(), sel.numpy(), d)).to(dtype)
+    gc = g.csr.to(cuda)
+    out = sc.spgemm_cbsr_cuda(gc, vals.to(cuda), sel.to(cuda), d)
+    again = sc.spgemm_cbsr_cuda(gc, vals.to(cuda), sel.to(cuda), d)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (v, d)
+    assert torch.equal(_bits(out), _bits(again))
+    _check_segments(out, spmm_segsum(g.csr, dense), g.csr, _abs_spmm(g.csr, dense.abs()), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,d", [(32, 256), (7, 50), (40, 256), (1, 1)])
+def test_sspmm_cbsr_kernel(cuda, k, d, dtype):
+    """K11 over Aᵀ against `sample_plain(spmm_segsum(Aᵀ, g), sel)` on the CPU:
+    a selector outside [0, D) gives 0; k = 40 takes two slot passes."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    g = _csr_graph(seed=3)
+    v = g.num_nodes
+    _, sel = _selectors(v, k, d, k * d)
+    ct = torch.randn((v, d), generator=torch.Generator().manual_seed(k)).to(dtype)
+    gc = g.csc.to(cuda)
+    out = sc.sspmm_cbsr_cuda(gc, ct.to(cuda), sel.to(cuda))
+    again = sc.sspmm_cbsr_cuda(gc, ct.to(cuda), sel.to(cuda))
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (v, k)
+    assert torch.equal(_bits(out), _bits(again))
+    ref = sc.sspmm_cbsr_plain(g.csc, ct, sel)
+    abs_ref = cbsr_cuda.sample_plain(_abs_spmm(g.csc, ct.abs()), sel)
+    _check_segments(out, ref, g.csc, abs_ref, dtype)
+    bad = (sel < 0) | (sel >= d)
+    assert not _bits(out.cpu()[bad]).any()
+
+
+@pytest.mark.cuda
+def test_csr_kernels_launch_on_the_current_stream(cuda):
+    """K9-K11 under `torch.cuda.stream(s)`, their input written on s after a
+    sleep: the same bits as a launch on the default stream."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    g = _csr_graph(seed=4)
+    gc, gt = g.csr.to(cuda), g.csc.to(cuda)
+    v = g.num_nodes
+    vals, sel = _selectors(v, 32, 256, 5)
+    vals, sel = vals.to(cuda), sel.to(cuda)
+    x = torch.randn((v, 256), generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    cases = {"spmm_csr": (sc.spmm_csr_cuda, (gc, x)),
+             "spgemm_cbsr": (lambda a, b: sc.spgemm_cbsr_cuda(gc, a, b, 256), (vals, sel)),
+             "sspmm_cbsr": (lambda a, b: sc.sspmm_cbsr_cuda(gt, a, b), (x, sel))}
+    s = torch.cuda.Stream()
+    for name, (kernel, args) in cases.items():
+        ref = kernel(*args)
+        late = [torch.zeros_like(a) if isinstance(a, torch.Tensor) else a for a in args]
+        torch.cuda.synchronize()
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+            for dst, src in zip(late, args):
+                if isinstance(src, torch.Tensor):
+                    dst.copy_(src)
+            got = kernel(*late)
+        s.synchronize()
+        assert torch.equal(_bits(got), _bits(ref)), name
+
+
+@pytest.mark.cuda
+def test_segsum_ops_run_the_csr_kernels(cuda, monkeypatch):
+    """On the card `spmm(mode="segsum")` runs K9 for A and Aᵀ and
+    `maxk_spgemm(mode="segsum")` K10 forward and K11 backward, one launch
+    each a call, and none reaches `index_add_` or the densify and sample
+    kernels; the plain versions count nothing."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.ops.spgemm import spmm
+
+    g = _csr_graph(seed=5)
+    graph = build_graph(g.csr.to("cpu"), device=cuda)
+    v = graph.num_nodes
+    counters = (sc.spmm_csr_cuda, sc.spgemm_cbsr_cuda, sc.sspmm_cbsr_cuda,
+                cbsr_cuda.densify_cuda, cbsr_cuda.sample_cuda)
+
+    def launched(fn):
+        before = [c.launches for c in counters]
+        fn()
+        torch.cuda.synchronize()
+        return [c.launches - b for c, b in zip(counters, before)]
+
+    def no_index_add(*a, **kw):
+        raise AssertionError("index_add_ reached on the card")
+
+    x = torch.randn((v, 64), device=cuda, requires_grad=True)
+    vals = torch.randn((v, 8), device=cuda, requires_grad=True)
+    sel = torch.randint(0, 64, (v, 8), device=cuda, dtype=torch.int32)
+    monkeypatch.setattr(torch.Tensor, "index_add_", no_index_add)
+    assert launched(lambda: spmm(graph, x, mode="segsum").sum().backward()) == [2, 0, 0, 0, 0]
+    assert launched(lambda: maxk_spgemm(graph, CBSR(vals, sel), dim=64, mode="segsum",
+                                        compute_dtype=torch.bfloat16).float().sum().backward()
+                    ) == [0, 1, 1, 0, 0]
+    monkeypatch.undo()
+    assert launched(lambda: (sc.spmm_csr_plain(graph.csr, x.detach()),
+                             sc.spgemm_cbsr_plain(graph.csr, vals.detach(), sel, 64),
+                             sc.sspmm_cbsr_plain(graph.csc, x.detach(), sel))) == [0] * 5
+
+
+@pytest.mark.cuda
+def test_csr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    g = _csr_graph(v=200, e=2000, seed=6)
+    gc = g.csr.to(cuda)
+    x = torch.randn((200, 32), device=cuda)
+    sel = torch.zeros((200, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sc.spmm_csr_cuda(gc, x.cpu())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sc.spmm_csr_cuda(g.csr, x)  # the CSR on the CPU
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.spmm_csr(gc, torch.randn((32, 200), device=cuda).t())
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            sc.spmm_csr(gc, x.to(dtype))
+    with pytest.raises(TypeError):
+        sc.spgemm_cbsr(gc, x[:, :4].contiguous(), sel.long(), 32)
+    with pytest.raises(ValueError):
+        sc.spgemm_cbsr(gc, x[:, :4].contiguous(), sel[:100], 32)
+    with pytest.raises(ValueError, match="rows of Aᵀ"):
+        sc.sspmm_cbsr(gc, x, sel[:100])
+    with pytest.raises(TypeError):
+        sc.sspmm_cbsr(gc, x.double(), sel)
+
+
 # the strip hybrid: torch products on the card (no kernel of the port's own)
 
 

@@ -168,7 +168,8 @@ def test_planning_rules_match_jax():
         th.STRIP_COLS_INT8
     assert th.auto_strip_cols(2_449_029, e_live=123_718_152, strip_itemsize=1, rates=h100) > \
         jh.auto_strip_cols(2_449_029, e_live=123_718_152, strip_itemsize=1)
-    assert th.hybrid_profitable(232965, 79_037_673, strip_itemsize=1, rates=h100)
+    # at the CSR kernel's gather rate the strip products no longer pay on reddit
+    assert not th.hybrid_profitable(232965, 79_037_673, strip_itemsize=1, rates=h100)
     assert th.card_rates("cpu") == th.V5E
 
 

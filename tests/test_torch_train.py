@@ -207,13 +207,15 @@ def test_validate_kernels_passes_on_cpu(mode):
 def test_validate_kernels_raises_on_a_noisy_spmm(monkeypatch):
     from maxk_tpu_torch.ops import spgemm
 
-    impl = spgemm._spmm_impl
+    # under segsum maxk_spgemm's forward is the CSR × CBSR product (K10's
+    # wrapper), so the noise goes there
+    impl = spgemm.spgemm_cbsr
     gen = torch.Generator().manual_seed(0)
     def noisy(*a, **kw):
         y = impl(*a, **kw)
         return y + 0.1 * torch.randn(y.shape, generator=gen)
 
-    monkeypatch.setattr(spgemm, "_spmm_impl", noisy)
+    monkeypatch.setattr(spgemm, "spgemm_cbsr", noisy)
     with pytest.raises(RuntimeError, match="kernel validation failed"):
         _validated_run(kernel_mode="segsum")
 
