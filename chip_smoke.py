@@ -282,12 +282,13 @@ def phase_kernels(v: int):
     return res
 
 
-def _csr_bytes(csr) -> int:
-    """A CSR's arrays and its segment table, in bytes: read once."""
+def _csr_bytes(csr, *extra) -> int:
+    """A CSR's arrays, its segment table and the `extra` arrays a kernel also
+    reads (work order, hub table), in bytes: read once."""
     t = csr.segments
     return sum(a.numel() * a.element_size() for a in (
         csr.indptr, csr.indices, csr.values, t.row, t.begin, t.part, t.multi_row,
-        t.multi_part0, t.multi_nseg))
+        t.multi_part0, t.multi_nseg, *extra))
 
 
 def phase_csr_kernels(graph) -> dict:
@@ -299,10 +300,19 @@ def phase_csr_kernels(graph) -> dict:
     2·n·2⁻²⁴·Σ|terms| + ulp·|ref| of the plain version's (n the row's
     edges: both sum the same rounded products in f32 in other orders, and
     round once); two launches of each give the same bits. Returns the
-    checks and K9's f32 seconds a live edge over A."""
+    checks and K9's f32 seconds a live edge over A.
+
+    K9's and K10's lines add the gather ceiling: the kernel timed on a copy
+    of the CSR whose column indices are folded into the rows whose bytes (K9:
+    feature rows; K10: merged CBSR rows) fill half the card's L2, so every
+    gathered row is a hit (`gather_ceiling_ms`; its share of the kernel's
+    time). K9's add its column slice, K10's the hub rows it holds in shared
+    memory and the share of the edges whose source is one of them."""
     import torch
 
+    from maxk_tpu_torch.bench.ablate_csr import folded_csr, hub_share
     from maxk_tpu_torch.bench.micro import bound
+    from maxk_tpu_torch.ops import _native
     from maxk_tpu_torch.ops import spmm_csr as sc
     from maxk_tpu_torch.ops.cbsr_cuda import densify_plain, sample_plain
     from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
@@ -334,6 +344,8 @@ def phase_csr_kernels(graph) -> dict:
         except (NotImplementedError, RuntimeError) as e:  # the library's gap
             rec["library_ms"], rec["library_error"] = None, f"{type(e).__name__}: {e}"[:200]
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        if "gather_ceiling_ms" in fields:
+            fields["gather_ceiling_share"] = fields["gather_ceiling_ms"] / rec["ms"]
         emit("kernel", name=name, check=key, library="torch.sparse.mm", **fields, **rec)
         require(same, f"{name} {key}: two launches differ")
         require(ratio <= 1.0, f"{name} {key}: {ratio} of its bound from the plain version")
@@ -343,30 +355,49 @@ def phase_csr_kernels(graph) -> dict:
     def abs_csr(csr):
         return CSRGraph(csr.indptr, csr.indices, csr.values.abs())
 
+    l2 = _native.l2_cache_bytes()
+
+    def ceiling(kernel_on, csr, row_bytes, gathered, hubs=False, **fields):
+        """The gather-ceiling fields of a K9 or K10 line."""
+        folded = folded_csr(csr, l2 // 2 // row_bytes, hubs=hubs)
+        ms = cuda_ms(lambda: kernel_on(folded), TIMED)
+        del folded
+        return dict(gather_ceiling_ms=ms, gathered_bytes=gathered, **fields)
+
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
         isz = torch.finfo(dtype).bits // 8
+        layout = sc.kernel_layout(isz, K, DIM)
         for op, csr in (("A", graph.csr), ("At", graph.csc)):
             x = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
             a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
                                         csr.values.to(dtype), (v, v))
+            extra = ceiling(lambda c: sc.spmm_csr_cuda(c, x), csr, DIM * isz,
+                            e_live * DIM * isz, slice_cols=layout["slice_cols"])
             check("spmm_csr", f"{op}_{tag}", lambda: sc.spmm_csr_cuda(csr, x),
                   lambda: sc.spmm_csr_plain(csr, x),
                   lambda: spmm_segsum(abs_csr(csr), x.abs().float()), csr,
-                  lambda: torch.sparse.mm(a, x), _csr_bytes(csr) + 2 * v * DIM * isz,
-                  operand=op, dtype=tag, nodes=v, edges=e_live, dim=DIM)
+                  lambda: torch.sparse.mm(a, x),
+                  _csr_bytes(csr, csr.segments.order) + 2 * v * DIM * isz,
+                  operand=op, dtype=tag, nodes=v, edges=e_live, dim=DIM, **extra)
             del a
         vals = vals32.to(dtype)
         a = torch.sparse_csr_tensor(graph.csr.indptr.long(), graph.csr.indices.long(),
                                     graph.csr.values.to(dtype), (v, v))
         dense = densify_plain(vals, sel, DIM)
+        cache_rows, segs = layout["k10_cache_rows"], graph.csr.segments
+        extra = ceiling(lambda c: sc.spgemm_cbsr_cuda(c, vals, sel, DIM), graph.csr,
+                        K * (2 + isz), e_live * K * (2 + isz), hubs=True,
+                        hub_rows=min(cache_rows, segs.hub_rows.shape[0]),
+                        hub_share=hub_share(graph.csr, cache_rows))
         check("spgemm_cbsr", tag, lambda: sc.spgemm_cbsr_cuda(graph.csr, vals, sel, DIM),
               lambda: sc.spgemm_cbsr_plain(graph.csr, vals, sel, DIM),
               lambda: spmm_segsum(abs_csr(graph.csr), dense.abs().float()), graph.csr,
               lambda: torch.sparse.mm(a, dense),
-              _csr_bytes(graph.csr) + v * K * (isz + 4) + v * DIM * isz,
+              _csr_bytes(graph.csr, segs.order, segs.hub_rows, segs.hub_slot) + v * K * (isz + 4)
+              + v * DIM * isz,
               operand="A", dtype=tag, nodes=v, edges=e_live, dim=DIM, k=K,
-              library_input="densified CBSR")
+              library_input="densified CBSR", **extra)
         del a, dense
         at = torch.sparse_csr_tensor(graph.csc.indptr.long(), graph.csc.indices.long(),
                                      graph.csc.values.to(dtype), (v, v))

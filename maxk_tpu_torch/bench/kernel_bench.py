@@ -223,7 +223,7 @@ def main(argv=None):
             raise ValueError(f"--mode {mode}: {name} is not undirected, so it has no strip "
                              "schedule")
         g_raw = g
-        g = with_segments(with_norm(g, "right"))  # the CSR kernels' table, built once
+        g = with_segments(with_norm(g, "right"), hubs=True)  # the CSR kernels' table, built once
         # the library arm: plain PyTorch over the tile schedule on a card, as
         # the reference's cuSPARSE role (`kernels/main.cu`) off the CPU
         base_mode = "segsum" if mode == "segsum" or device.type == "cpu" else "tiles_scan"

@@ -81,7 +81,7 @@ def main(argv=None) -> list:
     hybrid = hyb.build_hybrid(
         graw, s_cols=hyb.auto_strip_cols(v, e_live=e_live0, dim=args.dim,
                                          rates=hyb.card_rates(device)), norm="none")
-    g = with_segments(with_norm(graw, "none"))  # the CSR kernels' table, built once
+    g = with_segments(with_norm(graw, "none"), hubs=True)  # the CSR kernels' table, built once
     e_real = int((g.values != 0).sum())
     tiles = build_edge_tiles_device(g) if args.mode in TILE_MODES else None
     graph = Graph(csr=g, csc=g, tiles=tiles, tiles_t=tiles)

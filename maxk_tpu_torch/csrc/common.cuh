@@ -3,16 +3,32 @@
 // selections of the MaxK mask (maxk_mask.cu) and the top-k → CBSR kernel
 // (topk_cbsr.cu), both with contiguous columns a lane (compare-based and
 // bit-sliced searches), and the in-row gather of the take-along-rows
-// kernel (gather.cu).
+// kernel (gather.cu); a device attribute asked once.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace maxk {
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// An attribute of the current device, 0 on error. Asked once per device and
+// kept: it does not change, and a launch should not pay a query for it.
+template <cudaDeviceAttr kAttr>
+int device_attribute() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> kept[kMaxDevices];  // zero-initialized
+  int dev = 0, value = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && (value = kept[dev].load(std::memory_order_relaxed)) > 0) return value;
+  if (cudaDeviceGetAttribute(&value, kAttr, dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices) kept[dev].store(value, std::memory_order_relaxed);
+  return value;
+}
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {

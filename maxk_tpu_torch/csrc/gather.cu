@@ -41,7 +41,6 @@
 // PERF.md).
 // take-along-rows design: one thread per (r, j), the selector-guarded gather
 // of the CBSR sample (`maxk::gather_in_row`).
-#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -151,26 +150,12 @@ __global__ void take_rows_kernel(const T* __restrict__ x, const int* __restrict_
     maxk::gather_in_row(x, idx, out, i, k, dim);
 }
 
-// An attribute of the current device, 0 on error. Asked once per device and
-// kept: it does not change, and a launch should not pay a query for it.
-template <cudaDeviceAttr kAttr>
-int device_attribute() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> kept[kMaxDevices];  // zero-initialized
-  int dev = 0, value = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < kMaxDevices && (value = kept[dev].load(std::memory_order_relaxed)) > 0) return value;
-  if (cudaDeviceGetAttribute(&value, kAttr, dev) != cudaSuccess) return 0;
-  if (dev < kMaxDevices) kept[dev].store(value, std::memory_order_relaxed);
-  return value;
-}
-
 template <typename U>
 int launch_slab_units(const void* slab, const void* idx, void* out, int s, int units, int n,
                       cudaStream_t stream) {
   int lanes = 1;
   while (lanes < 32 && lanes < units) lanes *= 2;
-  const int sms = device_attribute<cudaDevAttrMultiProcessorCount>();
+  const int sms = maxk::device_attribute<cudaDevAttrMultiProcessorCount>();
   if (sms < 1) return (int)cudaErrorInvalidDevice;
   // a lane group per index, up to eight blocks an SM
   const int64_t want = ((int64_t)n * lanes + kSlabThreads - 1) / kSlabThreads;
@@ -186,7 +171,7 @@ int launch_slab_gather(const void* slab, const void* idx, void* out, int s, int 
                        cudaStream_t stream) {
   if (s < 1 || d < 1 || n < 1) return (int)cudaErrorInvalidValue;
   const int64_t row = (int64_t)d * sizeof(T);
-  const int l2 = device_attribute<cudaDevAttrL2CacheSize>();
+  const int l2 = maxk::device_attribute<cudaDevAttrL2CacheSize>();
   if (l2 < 1) return (int)cudaErrorInvalidDevice;
   if (s * row > l2) return (int)cudaErrorInvalidValue;
   const bool vec = row % 16 == 0 && reinterpret_cast<uintptr_t>(slab) % 16 == 0 &&
@@ -225,7 +210,7 @@ extern "C" int slab_gather_bf16(const void* slab, const void* idx, void* out, in
 
 // The card's L2 size in bytes (cudaDevAttrL2CacheSize of the current device).
 extern "C" int l2_cache_bytes(int* bytes) {
-  *bytes = device_attribute<cudaDevAttrL2CacheSize>();
+  *bytes = maxk::device_attribute<cudaDevAttrL2CacheSize>();
   return *bytes > 0 ? (int)cudaSuccess : (int)cudaErrorInvalidDevice;
 }
 

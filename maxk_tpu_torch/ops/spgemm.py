@@ -191,7 +191,10 @@ def maxk_spgemm(
     """Y = A @ densify(CBSR), gradient sampled at the CBSR coordinates.
 
     `dim` is the dense feature width; `compute_dtype=torch.bfloat16`
-    halves the SpMM's gather traffic, with f32 accumulation."""
+    halves the SpMM's gather traffic, with f32 accumulation. Under
+    `segsum` (and `auto` where it picks segsum) on a card the forward runs
+    the CBSR kernel K10, whose merged selectors are int16: there `dim` must
+    be below 32768, else it raises ValueError (the CPU takes any `dim`)."""
     return _MaxKSpGEMM.apply(
         cbsr.values.contiguous(), cbsr.selector.contiguous(), graph, dim,
         KernelMode(mode).value, compute_dtype,

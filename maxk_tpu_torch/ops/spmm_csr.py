@@ -22,11 +22,16 @@ PyTorch through `spmm_segsum`, `densify_plain` and `sample_plain`, in any
 dtype.
 
 The kernels walk the CSR's segment table (`sparse/csr.row_segments`, the
-one the graph carries, else one built for the call): a warp a segment of
-at most `SEG_EDGES` edges in CSR order, and a second pass adds the f32
-partial sums of a row of several segments in segment order. So every
-launch gives the same bits, and a row of one segment the plain version's
-bits on the CPU; a longer row differs from it by the f32 sum's grouping.
+one the graph carries, else one built for the call): segments of at most
+`SEG_EDGES` edges of a row, each summed in CSR order, and a second pass
+adds the f32 partial sums of a row of several segments in segment order.
+So every launch gives the same bits, and a row of one segment the plain
+version's bits on the CPU; a longer row differs from it by the f32 sum's
+grouping. K9 and K10 run on a persistent grid that takes the segments in
+the table's work order from zeroed counters their wrappers hand them (K9
+one a column slice, K10 one); K10 keeps the merged rows of the table's hub
+columns in shared memory (none where the table has no hub table). K10's
+merged selectors are int16: it takes dim < 32768 and raises above.
 The CSR's column indices must lie inside the features' rows: they are not
 checked.
 
@@ -35,6 +40,8 @@ tensors (or raise) and run the plain version for CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -68,7 +75,10 @@ def _segments(name: str, csr: CSRGraph, t: torch.Tensor) -> RowSegments:
         _native.check(name, arr, (dtype,), ndim=1)
         if arr.get_device() != dev:
             raise ValueError(f"{name}: the CSR lies on {arr.device}, the features on {t.device}")
-    segs = csr.segments if csr.segments is not None else row_segments(csr)
+    if csr.segments is not None:
+        segs = csr.segments
+    else:
+        segs = row_segments(csr, hubs=name == "spgemm_cbsr")
     if segs.row.get_device() != dev:
         raise ValueError(f"{name}: the segment table lies on {segs.row.device}, the features "
                          f"on {t.device}")
@@ -78,16 +88,40 @@ def _segments(name: str, csr: CSRGraph, t: torch.Tensor) -> RowSegments:
 
 
 def _launch(name: str, entry: str, csr: CSRGraph, segs: RowSegments, t: torch.Tensor,
-            tensors, width: int, *ints) -> None:
-    """Launch `entry` on the CSR, its table, `tensors` (data pointers) and an
-    f32 partial buffer of `width` columns for the rows of several segments."""
+            tensors, width: int, *ints, counters: int = 0, hubs: bool = False) -> None:
+    """Launch `entry` on the CSR, its segment table (with its work order
+    where `counters`, and its hub table where `hubs`), `tensors` (data
+    pointers), an f32 partial buffer of `width` columns for the rows of
+    several segments and `counters` zeroed work counters, then the table's
+    sizes (and the counters' count, the hub table's length) and `ints`."""
+    arrays = [csr.indptr, csr.indices, csr.values, segs.row, segs.begin, segs.part,
+              segs.multi_row, segs.multi_part0, segs.multi_nseg]
+    arrays += [segs.order] if counters else []
+    arrays += [segs.hub_rows, segs.hub_slot] if hubs else []
     part = torch.empty((segs.num_parts, width), dtype=torch.float32, device=t.device)
+    work = [torch.zeros(counters, dtype=torch.int32, device=t.device)] if counters else []
     _native.launch(
-        name, entry, t, csr.indptr.data_ptr(), csr.indices.data_ptr(), csr.values.data_ptr(),
-        segs.row.data_ptr(), segs.begin.data_ptr(), segs.part.data_ptr(),
-        segs.multi_row.data_ptr(), segs.multi_part0.data_ptr(), segs.multi_nseg.data_ptr(),
-        *(a.data_ptr() for a in tensors), part.data_ptr(), segs.num_segments,
-        segs.multi_row.shape[0], segs.seg_edges, *ints)
+        name, entry, t, *(a.data_ptr() for a in (*arrays, *tensors, part, *work)),
+        segs.num_segments, segs.multi_row.shape[0], segs.seg_edges,
+        *((counters,) if counters else ()), *((segs.hub_rows.shape[0],) if hubs else ()), *ints)
+
+
+def kernel_layout(itemsize: int, k: int, dim: int) -> dict:
+    """K9's column slice and the hub rows K10 holds in shared memory
+    (`csr_kernels_layout` in the kernels' source), for features of
+    `itemsize` bytes, k CBSR slots and dim columns."""
+    import ctypes
+
+    out = [ctypes.c_int(0) for _ in range(2)]
+    err = _native.library().csr_kernels_layout(itemsize, k, dim, *map(ctypes.byref, out))
+    if err != 0:
+        raise ValueError(f"csr_kernels_layout({itemsize}, {k}, {dim}): CUDA error {err}")
+    return dict(zip(("slice_cols", "k10_cache_rows"), (o.value for o in out)))
+
+
+@functools.lru_cache(maxsize=None)
+def _slice_cols(itemsize: int) -> int:
+    return kernel_layout(itemsize, 1, 1)["slice_cols"]
 
 
 def _suffix(t: torch.Tensor) -> str:
@@ -102,7 +136,8 @@ def spmm_csr_cuda(csr: CSRGraph, x: torch.Tensor) -> torch.Tensor:
     out = x.new_empty((csr.num_nodes, d))
     if csr.num_nodes == 0 or d == 0:
         return out
-    _launch("spmm_csr", f"spmm_csr_{_suffix(x)}", csr, segs, x, (x, out), d, d)
+    _launch("spmm_csr", f"spmm_csr_{_suffix(x)}", csr, segs, x, (x, out), d, d,
+            counters=-(-d // _slice_cols(x.element_size())))
     spmm_csr_cuda.launches += 1
     return out
 
@@ -119,13 +154,16 @@ def spgemm_cbsr_cuda(csr: CSRGraph, vals: torch.Tensor, sel: torch.Tensor,
     if k != vals.shape[1] or k < 1 or dim < 1:
         raise ValueError(f"spgemm_cbsr: values {tuple(vals.shape)}, selector "
                          f"{tuple(sel.shape)}, dim={dim}: need k >= 1 slots each and dim >= 1")
+    if dim > 32767:
+        raise ValueError(f"spgemm_cbsr: dim={dim}: the merged selectors are int16, dim < 32768")
     segs = _segments("spgemm_cbsr", csr, vals)
     out = vals.new_empty((csr.num_nodes, dim))
     if csr.num_nodes == 0:
         return out
-    merged = (torch.empty_like(vals), torch.empty_like(sel))  # the merge pass's CBSR
+    # the merge pass's CBSR: values and int16 selectors
+    merged = (torch.empty_like(vals), torch.empty(sel.shape, dtype=torch.int16, device=sel.device))
     _launch("spgemm_cbsr", f"spgemm_cbsr_{_suffix(vals)}", csr, segs, vals,
-            (vals, sel, *merged, out), dim, k, dim, vals.shape[0])
+            (vals, sel, *merged, out), dim, k, dim, vals.shape[0], counters=1, hubs=True)
     spgemm_cbsr_cuda.launches += 1
     return out
 

@@ -210,7 +210,8 @@ def build_sharded_graph(
     raw-value-symmetric (callers permute node data alike), and the rank's
     part of the strip schedule is built (`build_sharded_hybrid`, tail tile
     width `tail_edge_tile`); the CSR blocks are still built. Both blocks
-    carry their segment tables (`csr.with_segments`), built on the device."""
+    carry their segment tables (`csr.with_segments`), built on the device,
+    the forward block's with its hub table (K10 walks it)."""
     n = mesh.world_size
     shyb = None
     if hybrid:
@@ -224,7 +225,7 @@ def build_sharded_graph(
         bwd_tiles = build_edge_tiles(bwd, row_block, edge_tile).to(mesh.device)
     v = csr.num_nodes
     return ShardedGraph(
-        fwd=with_segments(fwd.to(mesh.device)),
+        fwd=with_segments(fwd.to(mesh.device), hubs=True),
         bwd=with_segments(bwd.to(mesh.device)),
         num_nodes=v,
         padded_nodes=-(-v // n) * n,

@@ -8,12 +8,16 @@ Tensors live on whatever device they were moved to (`CSRGraph.to`);
 the host-side builders return CPU tensors.
 
 `row_segments` cuts every row into segments of at most `SEG_EDGES` edges,
-the schedule of the CSR kernels (`ops/spmm_csr.py`): one warp a segment,
-so a hub row is spread over many warps, and the partial sums of a row of
-several segments are added in segment order by a second pass. The port's
-own (the reference sums with `segment_sum`); `with_segments` attaches the
-table to a CSR, which `sparse/graph.build_graph` and
-`parallel/shard.build_sharded_graph` do once per CSR on its device.
+the schedule of the CSR kernels (`ops/spmm_csr.py`): a lane group or a
+warp a segment, so a hub row is spread over many, and the partial sums of
+a row of several segments are added in segment order by a second pass.
+The table also carries the kernels' work order (segments by length) and,
+for a CSR that K10 walks, its hub table: the `HUB_ROWS` most-referenced
+columns, whose merged CBSR rows K10 keeps in shared memory. The port's own
+(the reference sums with `segment_sum`); `with_segments` attaches the
+table to a CSR, which `sparse/graph.build_graph` and `parallel/shard.
+build_sharded_graph` do once per CSR on its device, with the hub table
+for the CSR of A (the forward block).
 """
 
 from __future__ import annotations
@@ -28,6 +32,11 @@ import torch
 # schedule gives a warp at most 64 nonzeros; at D = 256 a segment of 256
 # edges gathers 256 KB, and its partial sum costs 2 KB of traffic more)
 SEG_EDGES = 256
+# columns of the hub table: K10 keeps as many of their merged CBSR rows in
+# shared memory as fit beside its accumulators (`ops/spmm_csr.kernel_layout`:
+# at D = 256, 254 / 381 rows of k = 32 slots in f32 / bf16, 1,018 / 1,527 of
+# k = 8), so the table holds what the narrowest rows the model runs fill
+HUB_ROWS = 1536
 
 
 @dataclass(frozen=True)
@@ -42,6 +51,13 @@ class RowSegments:
     multi_row, multi_part0, multi_nseg: (M,) int32 each row of several
                 segments, its first partial row and its segment count
     num_parts:  the partial rows, the sum of multi_nseg
+    order:      (S,) int32 the segments by length, longest first (ties in
+                table order): the kernels' work order
+    hub_rows:   (H,) int32 the H most-referenced columns, most first (ties
+                to the lower column); H = 0 where the table was built
+                without it
+    hub_slot:   (C,) int32 each column's slot in hub_rows, or -1; C is the
+                largest column index + 1 (0 without a hub table)
     """
 
     row: torch.Tensor
@@ -52,6 +68,9 @@ class RowSegments:
     multi_nseg: torch.Tensor
     num_parts: int
     seg_edges: int
+    order: torch.Tensor
+    hub_rows: torch.Tensor
+    hub_slot: torch.Tensor
 
     @property
     def num_segments(self) -> int:
@@ -59,7 +78,8 @@ class RowSegments:
 
     def to(self, device) -> "RowSegments":
         moved = {f: getattr(self, f).to(device) for f in
-                 ("row", "begin", "part", "multi_row", "multi_part0", "multi_nseg")}
+                 ("row", "begin", "part", "multi_row", "multi_part0", "multi_nseg", "order",
+                  "hub_rows", "hub_slot")}
         return RowSegments(num_parts=self.num_parts, seg_edges=self.seg_edges, **moved)
 
 
@@ -113,8 +133,23 @@ class CSRGraph:
         )
 
 
-def row_segments(g: CSRGraph, seg_edges: int = SEG_EDGES) -> RowSegments:
-    """The segment table of `g`, built on its device."""
+def hub_table(indices: torch.Tensor, rows: int = HUB_ROWS):
+    """(hub_rows, hub_slot) of a CSR's column indices, on their device: the
+    `rows` columns with the most references, ties to the lower column, and
+    each column's slot among them or -1, over columns 0..max index."""
+    if rows < 0:
+        raise ValueError(f"rows={rows} must be >= 0")
+    counts = torch.bincount(indices.long())
+    h = min(rows, counts.shape[0])
+    hubs = torch.sort(counts, descending=True, stable=True).indices[:h]
+    slot = torch.full_like(counts, -1)
+    slot[hubs] = torch.arange(h, device=counts.device)
+    return hubs.int(), slot.int()
+
+
+def row_segments(g: CSRGraph, seg_edges: int = SEG_EDGES, hubs: bool = False) -> RowSegments:
+    """The segment table of `g`, built on its device; with `hubs`, its hub
+    table (`hub_table`), else an empty one."""
     if seg_edges < 1:
         raise ValueError(f"seg_edges={seg_edges} must be >= 1")
     dev = g.indptr.device
@@ -128,22 +163,31 @@ def row_segments(g: CSRGraph, seg_edges: int = SEG_EDGES) -> RowSegments:
     mseg = torch.where(multi, nseg, 0)
     part0 = torch.cumsum(mseg, 0) - mseg
     multi_row = torch.nonzero(multi).flatten()
+    begin = indptr[row] + local * seg_edges
+    length = torch.minimum(begin + seg_edges, indptr[row + 1]) - begin
+    if hubs:
+        hub_rows, hub_slot = hub_table(g.indices[: int(indptr[-1])])
+    else:
+        hub_rows = hub_slot = torch.empty(0, dtype=torch.int32, device=dev)
     return RowSegments(
         row=row.int(),
-        begin=(indptr[row] + local * seg_edges).int(),
+        begin=begin.int(),
         part=torch.where(multi[row], part0[row] + local, -1).int(),
         multi_row=multi_row.int(),
         multi_part0=part0[multi_row].int(),
         multi_nseg=nseg[multi_row].int(),
         num_parts=int(mseg.sum()),
         seg_edges=seg_edges,
+        order=torch.sort(length, descending=True, stable=True).indices.int(),
+        hub_rows=hub_rows,
+        hub_slot=hub_slot,
     )
 
 
-def with_segments(g: CSRGraph, seg_edges: int = SEG_EDGES) -> CSRGraph:
-    """`g` carrying its segment table."""
+def with_segments(g: CSRGraph, seg_edges: int = SEG_EDGES, hubs: bool = False) -> CSRGraph:
+    """`g` carrying its segment table (with its hub table where `hubs`)."""
     return CSRGraph(indptr=g.indptr, indices=g.indices, values=g.values,
-                    segments=row_segments(g, seg_edges))
+                    segments=row_segments(g, seg_edges, hubs))
 
 
 def _from_scipy(m) -> CSRGraph:

@@ -125,7 +125,7 @@ def build_graph(
     if device is not None:
         g = g.to(device)
         gt = g if symmetric else gt.to(device)
-    g = with_segments(g)
+    g = with_segments(g, hubs=True)  # K10 walks A
     gt = g if symmetric else with_segments(gt)
     tiles = tiles_t = None
     if build_tiles:

@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from maxk_tpu_torch.bench import (ablate_bricks, ablate_mask_gather, ablate_topk_sample,
-                                  kernel_bench, micro, probe_bricks, probe_hybrid, probe_int8,
-                                  probe_topk)
+from maxk_tpu_torch.bench import (ablate_bricks, ablate_csr, ablate_mask_gather,
+                                  ablate_topk_sample, kernel_bench, micro, probe_bricks,
+                                  probe_hybrid, probe_int8, probe_topk)
 from maxk_tpu_torch.ops import gather_cuda
 from maxk_tpu_torch.ops.dispatch import resolve_mode
 
@@ -173,7 +173,7 @@ def test_pallas_mode_refuses_with_the_reference_reason():
 
 @pytest.mark.parametrize("entry", ["bench", "kernel_bench", "micro", "probe_topk", "probe_bricks",
                                    "ablate_bricks", "ablate_mask_gather", "ablate_topk_sample",
-                                   "probe_hybrid", "probe_int8", "degree_sweep", "ksweep",
+                                   "ablate_csr", "probe_hybrid", "probe_int8", "degree_sweep", "ksweep",
                                    "memcheck", "spgemm_study", "three_arms", "scaling"])
 def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
@@ -191,12 +191,26 @@ def test_entry_points_default_to_the_card(entry):
     main = {"bench": bench.main, "kernel_bench": kernel_bench.main, "micro": micro.main,
             "probe_topk": probe_topk.main, "probe_bricks": probe_bricks.main,
             "ablate_bricks": ablate_bricks.main, "ablate_mask_gather": ablate_mask_gather.main,
-            "ablate_topk_sample": ablate_topk_sample.main, "probe_hybrid": probe_hybrid.main,
+            "ablate_topk_sample": ablate_topk_sample.main, "ablate_csr": ablate_csr.main,
+            "probe_hybrid": probe_hybrid.main,
             "probe_int8": probe_int8.main, "degree_sweep": degree_sweep.main,
             "ksweep": ksweep.main, "memcheck": memcheck.main, "spgemm_study": spgemm_study.main,
             "three_arms": three_arms.main, "scaling": scaling.main}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([])
+
+
+@pytest.mark.parametrize("edits", ["K9_EDITS", "K10_EDITS"])
+def test_ablate_csr_edits_apply_to_the_kernel_source(edits):
+    """Every text edit of the CSR kernels' probe names text that stands in
+    `csrc/spmm_csr.cu` and changes it (a rewrite that drops a line makes
+    the probe raise on the card; this finds it on the CPU)."""
+    from maxk_tpu_torch.ops import _native
+
+    src = (_native.CSRC / "spmm_csr.cu").read_text()
+    for name, pairs in getattr(ablate_csr, edits).items():
+        out = ablate_csr.edited("test", name, src, pairs)
+        assert (out != src) == bool(pairs), name
 
 
 def test_probe_bricks_tiles_arm_on_cpu():

@@ -683,10 +683,18 @@ def _check_segments(out, ref, csr, abs_ref, dtype):
     one = deg <= SEG_EDGES
     assert bool(one.any()) and bool((~one).any())
     assert torch.equal(_bits(out[one]), _bits(ref[one]))
+    _check_close(out, ref, csr, abs_ref, dtype)
+
+
+def _check_close(out, ref, csr, abs_ref, dtype):
+    """Every element of `out` within 2·n·2⁻²⁴·Σ|terms| + one ulp of `dtype`
+    at |ref| of `ref` (n the row's edges)."""
+    out = out.cpu()
+    deg = torch.diff(csr.indptr.long())
     ulp = 2.0**-7 if dtype == torch.bfloat16 else 2.0**-23
     tol = 2.0 * deg[:, None].double() * 2.0**-24 * abs_ref + ulp * ref.double().abs()
     err = (out.double() - ref.double()).abs()
-    assert bool((err <= tol)[~one].all()), float((err - tol).max())
+    assert bool((err <= tol).all()), float((err - tol).max())
 
 
 def _abs_spmm(csr, x_abs):
@@ -699,15 +707,34 @@ def _abs_spmm(csr, x_abs):
     return 1.01 * spmm_segsum(a, x_abs.double())
 
 
+def _with_hubs(csr, hubs):
+    """`csr` carrying a segment table whose hub table holds `hubs` columns
+    ("all": every column)."""
+    from dataclasses import replace
+
+    from maxk_tpu_torch.sparse.csr import CSRGraph, hub_table, row_segments
+
+    h = csr.num_nodes if hubs == "all" else hubs
+    rows, slot = hub_table(csr.indices[: int(csr.indptr[-1])], h)
+    return CSRGraph(csr.indptr, csr.indices, csr.values,
+                    replace(row_segments(csr), hub_rows=rows, hub_slot=slot))
+
+
+# K10's hub tables: none, a few columns (cached and uncached sources), every
+# column of a graph small enough for its shared memory to hold most of them
+HUBS = [(0, 3000), (40, 3000), ("all", 1000)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [256, 50, 300, 8])
+@pytest.mark.parametrize("d", [256, 50, 300, 8, 200])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_spmm_csr_kernel(cuda, d, dtype, transpose):
-    """K9 over A and Aᵀ against `spmm_segsum` on the CPU. D = 256 and 8 move
-    16-byte vectors; D = 50 (and bf16 at 300) rows are no multiple of 16
-    bytes and move element by element; D = 300 in f32 takes two column
-    passes. Empty rows are zeros; two launches give the same bits."""
+    """K9 over A and Aᵀ against `spmm_segsum` on the CPU. D = 256, 200 and 8
+    move 16-byte vectors (D = 300 in f32 too: four 64-column slices and a
+    ragged 44; 200 in bf16: a 128-column slice and a ragged 72); D = 50 (and
+    bf16 at 300) rows are no multiple of 16 bytes and move element by
+    element. Empty rows are zeros; two launches give the same bits."""
     from maxk_tpu_torch.ops import spmm_csr as sc
 
     g = _csr_graph()
@@ -722,6 +749,70 @@ def test_spmm_csr_kernel(cuda, d, dtype, transpose):
     _check_segments(out, sc.spmm_csr_plain(csr, x), csr, _abs_spmm(csr, x.abs()), dtype)
     empty = torch.diff(csr.indptr) == 0
     assert bool(empty.any()) and not _bits(out.cpu()[empty]).any()
+
+
+@pytest.mark.cuda
+def test_spmm_csr_kernel_bf16_products_round_once(cuda):
+    """K9 in bf16 on rows of one edge: y = T(+0.0 + T(x * a)) for x and a
+    spread over bf16's whole exponent range, normal, subnormal and vanishing
+    products and their signs included, equal bit for bit to the f32 product
+    rounded to bf16 on the CPU (the product of two bf16 values is exact in f32, so
+    `__hmul2_rn`'s one rounding gives the same bits)."""
+    import numpy as np
+
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.sparse.csr import csr_from_coo, with_segments
+
+    v, d = 4096, 64
+    rng = np.random.default_rng(11)
+    cols = rng.integers(0, v, v)
+    # weights 2^-70..2^10 and features 2^-80..2^5: products from 2^-150 up
+    a = (rng.choice([-1.0, 1.0], v) * 2.0 ** rng.uniform(-70, 10, v)).astype(np.float32)
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], (v, d)) * 2.0 ** rng.uniform(-80, 5, (v, d)))
+    x = x.float().to(torch.bfloat16)
+    csr = with_segments(csr_from_coo(np.arange(v), cols, v, a, dedup=False))
+    out = sc.spmm_csr_cuda(csr.to(cuda), x.to(cuda)).cpu()
+    ab = torch.from_numpy(a).to(torch.bfloat16).float()[:, None]
+    prod = (x[torch.from_numpy(cols)].float() * ab).to(torch.bfloat16)
+    tiny = prod.float().abs() < torch.finfo(torch.bfloat16).tiny
+    assert bool((tiny & (prod != 0)).any()) and bool((tiny & (prod == 0)).any())
+    # the sum starts at +0.0, so a -0.0 product leaves +0.0
+    ref = (prod.float() + 0.0).to(torch.bfloat16)
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,e", [(40, 120), (1 << 18, 1 << 21)])
+def test_csr_kernels_grid_sizes(cuda, v, e, dtype):
+    """K9 and K10 on a graph of fewer segments than the persistent grid has
+    warps, and on one of many more work units than the grid (K10's warps
+    then take several segments a take): every row of one segment bit-equal
+    to the CPU's, the others within the regrouping."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
+
+    g = rmat_graph(v, e, seed=5)
+    csr = _with_hubs(build_graph(g).csr, 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (csr.segments.num_segments < sms * 16) == (v == 40)
+    # K10: 4 blocks of 8 warps an SM, at least 16 takes a warp: 2 segments a take
+    assert (csr.segments.num_segments >= sms * 4 * 8 * 16 * 2) == (v != 40)
+    x = torch.randn((v, 64), generator=torch.Generator().manual_seed(1)).to(dtype)
+    gc = csr.to(cuda)
+    out = sc.spmm_csr_cuda(gc, x.to(cuda))
+    deg = torch.diff(csr.indptr.long())
+    one = deg <= csr.segments.seg_edges
+    ref = sc.spmm_csr_plain(csr, x)
+    assert torch.equal(_bits(out.cpu()[one]), _bits(ref[one]))
+    _check_close(out, ref, csr, _abs_spmm(csr, x.abs()), dtype)
+    vals, sel = _selectors(v, 32, 64, 3)
+    vals = vals.to(dtype)
+    dense = torch.from_numpy(_sequential_densify(vals.float().numpy(), sel.numpy(), 64)).to(dtype)
+    out = sc.spgemm_cbsr_cuda(gc, vals.to(cuda), sel.to(cuda), 64)
+    ref = spmm_segsum(csr, dense)
+    assert torch.equal(_bits(out.cpu()[one]), _bits(ref[one]))
+    _check_close(out, ref, csr, _abs_spmm(csr, dense.abs()), dtype)
 
 
 @pytest.mark.cuda
@@ -762,25 +853,27 @@ def _selectors(v, k, d, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,d", [(32, 256), (7, 50), (40, 256), (64, 2000)])
-def test_spgemm_cbsr_kernel(cuda, k, d, dtype):
+@pytest.mark.parametrize("hubs,v", HUBS)
+def test_spgemm_cbsr_kernel(cuda, k, d, dtype, hubs, v):
     """K10 against a sequential slot-order densify (`_sequential_densify`,
-    rounded once) and `spmm_segsum` on the CPU: k = 40, 64 take the two-row
-    path (equal selectors across 32-slot chunks), D = 2000 two column tiles."""
+    rounded once) and `spmm_segsum` on the CPU, with 0, 40 and all columns
+    in the hub table: k = 40, 64 take the two-row path (equal selectors
+    across 32-slot chunks), D = 2000 two column tiles."""
     from maxk_tpu_torch.ops import spmm_csr as sc
     from maxk_tpu_torch.ops.spmm_xla import spmm_segsum
 
-    g = _csr_graph(seed=2)
-    v = g.num_nodes
+    g = _csr_graph(v=v, e=20 * v, seed=2)
+    csr = _with_hubs(g.csr, hubs)
     vals, sel = _selectors(v, k, d, k + d)
     vals = vals.to(dtype)
     dense = torch.from_numpy(_sequential_densify(vals.float().numpy(), sel.numpy(), d)).to(dtype)
-    gc = g.csr.to(cuda)
+    gc = csr.to(cuda)
     out = sc.spgemm_cbsr_cuda(gc, vals.to(cuda), sel.to(cuda), d)
     again = sc.spgemm_cbsr_cuda(gc, vals.to(cuda), sel.to(cuda), d)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (v, d)
     assert torch.equal(_bits(out), _bits(again))
-    _check_segments(out, spmm_segsum(g.csr, dense), g.csr, _abs_spmm(g.csr, dense.abs()), dtype)
+    _check_segments(out, spmm_segsum(csr, dense), csr, _abs_spmm(csr, dense.abs()), dtype)
 
 
 @pytest.mark.cuda
@@ -897,10 +990,27 @@ def test_csr_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         sc.spgemm_cbsr(gc, x[:, :4].contiguous(), sel.long(), 32)
     with pytest.raises(ValueError):
         sc.spgemm_cbsr(gc, x[:, :4].contiguous(), sel[:100], 32)
+    with pytest.raises(ValueError, match="int16"):
+        sc.spgemm_cbsr(gc, x[:, :4].contiguous(), sel, 32768)
     with pytest.raises(ValueError, match="rows of Aᵀ"):
         sc.sspmm_cbsr(gc, x, sel[:100])
     with pytest.raises(TypeError):
         sc.sspmm_cbsr(gc, x.double(), sel)
+
+
+@pytest.mark.cuda
+def test_spmm_csr_kernel_refuses_fewer_counters_than_slices(cuda, monkeypatch):
+    """K9 takes its work from a counter a column slice: handed fewer than
+    its slices (a layout twice as wide), it launches nothing and the
+    wrapper raises, in place of reading past the counters."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    gc = _csr_graph(v=200, e=2000, seed=6).csr.to(cuda)
+    x = torch.randn((200, 256), device=cuda)
+    wide = sc._slice_cols(4) * 2
+    monkeypatch.setattr(sc, "_slice_cols", lambda itemsize: wide)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sc.spmm_csr_cuda(gc, x)
 
 
 # the strip hybrid: torch products on the card (no kernel of the port's own)

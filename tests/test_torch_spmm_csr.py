@@ -32,7 +32,8 @@ from maxk_tpu_torch.ops import spgemm as tsp
 from maxk_tpu_torch.ops import spmm_csr as sc
 from maxk_tpu_torch.parallel.shard import build_sharded_graph
 from maxk_tpu_torch.sparse.cbsr import CBSR
-from maxk_tpu_torch.sparse.csr import SEG_EDGES, csr_from_coo, row_segments
+from maxk_tpu_torch.sparse.csr import (HUB_ROWS, SEG_EDGES, csr_from_coo, hub_table,
+                                       row_segments)
 from maxk_tpu_torch.sparse.graph import build_graph
 
 torch.set_num_threads(1)
@@ -259,8 +260,9 @@ def test_segment_table_covers_every_edge_once_in_csr_order(graphs, seg_edges, tr
 
 
 def test_graphs_carry_their_tables(graphs):
-    """build_graph attaches a table to A and Aᵀ (shared when Aᵀ is A), and
-    `CSRGraph.to` moves it."""
+    """build_graph attaches a table to A and Aᵀ (shared when Aᵀ is A), A's
+    with its hub table (K10 walks A), Aᵀ's without, and `CSRGraph.to` moves
+    it."""
     _, tg = graphs
     for csr in (tg.csr, tg.csc):
         t, ref = csr.segments, row_segments(csr)
@@ -269,8 +271,116 @@ def test_graphs_carry_their_tables(graphs):
     rows, cols, _ = _coo()
     sym = build_graph(csr_from_coo(np.concatenate([rows, cols]), np.concatenate([cols, rows]), V))
     assert sym.csc is sym.csr and sym.csr.segments is not None
+    for csr in (tg.csr, sym.csr):
+        assert np.array_equal(csr.segments.hub_rows.numpy(), _reference_hubs(csr, HUB_ROWS))
+    assert tg.csc.segments.hub_rows.shape == tg.csc.segments.hub_slot.shape == (0,)
     moved = tg.csr.to("cpu")
     assert moved.segments is not None and torch.equal(moved.segments.row, tg.csr.segments.row)
+
+
+def _live(csr):
+    return csr.indices[: int(csr.indptr[-1])]
+
+
+def _reference_hubs(csr, h):
+    """The h most-referenced columns, ties to the lower column, by numpy."""
+    live = csr.indices[: int(csr.indptr[-1])].numpy()
+    counts = np.bincount(live)
+    return np.lexsort((np.arange(counts.shape[0]), -counts))[:h]
+
+
+@pytest.mark.parametrize("h", [1, 7, 40, HUB_ROWS])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_hub_table_holds_the_most_referenced_columns(graphs, h, transpose):
+    """hub_rows: the h columns with the most references, most first, ties to
+    the lower column; hub_slot maps each of them to its slot and every other
+    column to -1, over columns 0..largest index."""
+    _, tg = graphs
+    csr = tg.csc if transpose else tg.csr
+    hub_rows, hub_slot = hub_table(_live(csr), h)
+    ref = _reference_hubs(csr, h)
+    assert hub_rows.dtype == torch.int32 and hub_slot.dtype == torch.int32
+    assert np.array_equal(hub_rows.numpy(), ref)
+    assert hub_slot.shape[0] == int(_live(csr).max()) + 1
+    assert torch.equal(hub_slot[hub_rows.long()], torch.arange(len(ref), dtype=torch.int32))
+    rest = torch.ones(hub_slot.shape[0], dtype=torch.bool)
+    rest[hub_rows.long()] = False
+    assert bool((hub_slot[rest] == -1).all())
+    hub = HUB_ROW if transpose else HUB_COL  # in every row of A: the most referenced
+    assert int(hub_rows[0]) == hub
+    # the segment table's, with `hubs`: the HUB_ROWS-column table
+    t = row_segments(csr, hubs=True)
+    full_rows, full_slot = hub_table(_live(csr))
+    assert torch.equal(t.hub_rows, full_rows) and torch.equal(t.hub_slot, full_slot)
+
+
+def test_hub_table_ties_go_to_the_lower_column():
+    """Columns 9, 3 and 5 twice each, 1 once: the table is 3, 5, 9, 1."""
+    csr = csr_from_coo(np.array([0, 1, 2, 3, 4, 5, 6]), np.array([9, 3, 5, 9, 3, 5, 1]), 10,
+                       dedup=False)
+    hub_rows, hub_slot = hub_table(_live(csr), 4)
+    assert hub_rows.tolist() == [3, 5, 9, 1]
+    assert hub_slot.tolist() == [-1, 3, -1, 0, -1, 1, -1, -1, -1, 2]
+
+
+@pytest.mark.parametrize("h", [0, V, 10 * V])
+def test_hub_table_empty_or_every_column(graphs, h):
+    """H = 0: no hub row, every slot -1; H at or past the column count: every
+    column referenced or not up to the largest index, in the table once."""
+    _, tg = graphs
+    hub_rows, hub_slot = hub_table(_live(tg.csr), h)
+    ncols = hub_slot.shape[0]
+    if h == 0:
+        assert hub_rows.shape == (0,) and bool((hub_slot == -1).all())
+    else:
+        assert hub_rows.shape == (ncols,)
+        assert torch.equal(torch.sort(hub_rows).values, torch.arange(ncols, dtype=torch.int32))
+        assert torch.equal(hub_slot[hub_rows.long()], torch.arange(ncols, dtype=torch.int32))
+    with pytest.raises(ValueError, match="rows"):
+        hub_table(_live(tg.csr), -1)
+
+
+@pytest.mark.parametrize("seg_edges", [3, SEG_EDGES])
+def test_work_order_puts_long_segments_first(graphs, seg_edges):
+    """order: a permutation of the segments by length, longest first, equal
+    lengths in table order."""
+    _, tg = graphs
+    t = row_segments(tg.csr, seg_edges)
+    indptr = tg.csr.indptr.long()
+    begin = t.begin.long()
+    length = torch.minimum(begin + seg_edges, indptr[t.row.long() + 1]) - begin
+    order = t.order.long()
+    assert t.order.dtype == torch.int32
+    assert torch.equal(torch.sort(order).values, torch.arange(t.num_segments))
+    lo = length[order]
+    assert bool((lo[1:] <= lo[:-1]).all())
+    same = lo[1:] == lo[:-1]
+    assert bool((order[1:][same] > order[:-1][same]).all())
+
+
+def test_moved_table_equals_the_table_of_the_moved_csr(graphs):
+    """The table moved with its CSR (`CSRGraph.to`) equals the one built on
+    the moved CSR, field by field."""
+    _, tg = graphs
+    moved = tg.csr.to("cpu")
+    built = row_segments(moved, hubs=True)
+    for f in ("row", "begin", "part", "multi_row", "multi_part0", "multi_nseg", "order",
+              "hub_rows", "hub_slot"):
+        assert torch.equal(getattr(moved.segments, f), getattr(built, f)), f
+    assert moved.segments.num_parts == built.num_parts
+
+
+def test_sharded_blocks_carry_hub_tables_over_the_gathered_columns():
+    """build_sharded_graph attaches to a rank's forward block (which K10
+    walks) a hub table over the block's own columns (the gathered features'
+    rows), sized from its largest index, and none to its backward block."""
+    rows, cols, vals = _coo()
+    mesh = types.SimpleNamespace(world_size=1, rank=0, device=torch.device("cpu"))
+    sg = build_sharded_graph(csr_from_coo(rows, cols, V, vals, dedup=False), mesh)
+    t = sg.fwd.segments
+    assert t.hub_slot.shape[0] == int(_live(sg.fwd).max()) + 1
+    assert np.array_equal(t.hub_rows.numpy(), _reference_hubs(sg.fwd, HUB_ROWS))
+    assert sg.bwd.segments.hub_rows.shape == sg.bwd.segments.hub_slot.shape == (0,)
 
 
 def test_wrappers_refuse_other_devices(graphs):
