@@ -6,7 +6,8 @@
 Builds the CUDA kernels from `maxk_tpu_torch/csrc/`, holds each against
 its plain PyTorch version at the main path's shapes (the segsum path's CSR
 kernels, K9 `spmm_csr` over A and Aᵀ, K10 `spgemm_cbsr` and K11
-`sspmm_cbsr`, on full-scale synthetic reddit: `csr_kernels`), runs the op
+`sspmm_cbsr` at k = 16, 32 and 64, each beside its gather ceiling, on
+full-scale synthetic reddit: `csr_kernels`), runs the op
 `maxk_spgemm` under segsum (K10, K11) on that graph against its plain
 path, then
 trains MaxK-SAGE (4×256, k=32, dropout 0.5, lr 0.01 — the reference's
@@ -48,8 +49,8 @@ and the sample and take-along-rows bounded by the 32-byte sectors and
 (`sector_bound_ms`, `granule_bound_ms`: `micro.in_row_gather_bound`). The
 `launch_path` line takes K8's call at probe_topk's (256, 256) apart on the
 host clock, step by step, for the earlier and the current launch path.
-Each phase prints one JSON line; every failure exits non-zero with no
-`ok` line. The last three lines are the kernels record, the card's
+Each phase prints one JSON line (with `at_s`, the seconds since the
+start); every failure exits non-zero with no `ok` line. The last three lines are the kernels record, the card's
 `nvidia-smi` name and power limit, and the `ok` line.
 
 float32 matrix products and convolutions run in full float32 here: TF32 is
@@ -81,8 +82,14 @@ class SmokeFailure(Exception):
     pass
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, its fields and `at_s`, the seconds since
+    the script started (so a slow run can be taken apart phase by phase)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - _START, 1)}), flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -282,17 +289,9 @@ def phase_kernels(v: int):
     return res
 
 
-def _csr_bytes(csr, *extra) -> int:
-    """A CSR's arrays, its segment table and the `extra` arrays a kernel also
-    reads (work order, hub table), in bytes: read once."""
-    t = csr.segments
-    return sum(a.numel() * a.element_size() for a in (
-        csr.indptr, csr.indices, csr.values, t.row, t.begin, t.part, t.multi_row,
-        t.multi_part0, t.multi_nseg, *extra))
-
-
 def phase_csr_kernels(graph) -> dict:
-    """K9 over A and Aᵀ, K10 over A and K11 over Aᵀ (k = 32), f32 and bf16,
+    """K9 over A and Aᵀ, K10 over A (k = 32) and K11 over Aᵀ (k = 32, 16 and
+    64: each lane layout), f32 and bf16,
     at reddit ×1.0, against their plain versions on the card (`index_add_`:
     the order of its f32 sum varies), timed beside the bound, the plain
     version and `torch.sparse.mm` on the same CSR (K10: on the densified
@@ -302,15 +301,18 @@ def phase_csr_kernels(graph) -> dict:
     round once); two launches of each give the same bits. Returns the
     checks and K9's f32 seconds a live edge over A.
 
-    K9's and K10's lines add the gather ceiling: the kernel timed on a copy
-    of the CSR whose column indices are folded into the rows whose bytes (K9:
+    Each line adds the gather ceiling: the kernel timed on a copy of the
+    CSR whose column indices are folded into the rows whose bytes (K9, K11:
     feature rows; K10: merged CBSR rows) fill half the card's L2, so every
     gathered row is a hit (`gather_ceiling_ms`; its share of the kernel's
-    time). K9's add its column slice, K10's the hub rows it holds in shared
-    memory and the share of the edges whose source is one of them."""
+    time), beside the bytes gathered (`gathered_bytes`: a row, or k slots, an
+    edge; K11 the 32-byte sectors of g's rows its selectors touch,
+    `ablate_csr.sector_bytes`). K9's and K11's add their column slice, K10's
+    the hub rows it holds in shared memory and the share of the edges whose
+    source is one of them."""
     import torch
 
-    from maxk_tpu_torch.bench.ablate_csr import folded_csr, hub_share
+    from maxk_tpu_torch.bench.ablate_csr import csr_bytes, folded_csr, hub_share, sector_bytes
     from maxk_tpu_torch.bench.micro import bound
     from maxk_tpu_torch.ops import _native
     from maxk_tpu_torch.ops import spmm_csr as sc
@@ -358,7 +360,7 @@ def phase_csr_kernels(graph) -> dict:
     l2 = _native.l2_cache_bytes()
 
     def ceiling(kernel_on, csr, row_bytes, gathered, hubs=False, **fields):
-        """The gather-ceiling fields of a K9 or K10 line."""
+        """The gather-ceiling fields of a kernel line."""
         folded = folded_csr(csr, l2 // 2 // row_bytes, hubs=hubs)
         ms = cuda_ms(lambda: kernel_on(folded), TIMED)
         del folded
@@ -378,7 +380,7 @@ def phase_csr_kernels(graph) -> dict:
                   lambda: sc.spmm_csr_plain(csr, x),
                   lambda: spmm_segsum(abs_csr(csr), x.abs().float()), csr,
                   lambda: torch.sparse.mm(a, x),
-                  _csr_bytes(csr, csr.segments.order) + 2 * v * DIM * isz,
+                  csr_bytes(csr) + 2 * v * DIM * isz,
                   operand=op, dtype=tag, nodes=v, edges=e_live, dim=DIM, **extra)
             del a
         vals = vals32.to(dtype)
@@ -394,21 +396,29 @@ def phase_csr_kernels(graph) -> dict:
               lambda: sc.spgemm_cbsr_plain(graph.csr, vals, sel, DIM),
               lambda: spmm_segsum(abs_csr(graph.csr), dense.abs().float()), graph.csr,
               lambda: torch.sparse.mm(a, dense),
-              _csr_bytes(graph.csr, segs.order, segs.hub_rows, segs.hub_slot) + v * K * (isz + 4)
-              + v * DIM * isz,
+              csr_bytes(graph.csr) + v * K * (isz + 4) + v * DIM * isz,
               operand="A", dtype=tag, nodes=v, edges=e_live, dim=DIM, k=K,
               library_input="densified CBSR", **extra)
         del a, dense
-        at = torch.sparse_csr_tensor(graph.csc.indptr.long(), graph.csc.indices.long(),
-                                     graph.csc.values.to(dtype), (v, v))
+        csc = graph.csc
+        at = torch.sparse_csr_tensor(csc.indptr.long(), csc.indices.long(),
+                                     csc.values.to(dtype), (v, v))
         ct = torch.randn((v, DIM), generator=gen, device="cuda").to(dtype)
-        check("sspmm_cbsr", tag, lambda: sc.sspmm_cbsr_cuda(graph.csc, ct, sel),
-              lambda: sc.sspmm_cbsr_plain(graph.csc, ct, sel),
-              lambda: sample_plain(spmm_segsum(abs_csr(graph.csc), ct.abs().float()), sel),
-              graph.csc, lambda: torch.sparse.mm(at, ct),
-              _csr_bytes(graph.csc) + v * DIM * isz + v * K * (4 + isz),
-              operand="At", dtype=tag, nodes=v, edges=e_live, dim=DIM, k=K,
-              library_input="Aᵀ @ g, not sampled")
+        for k in (K, 16, 64):  # a warp, 16 lanes and 2 slots a lane a segment
+            ks = sel if k == K else torch.randint(0, DIM, (v, k), generator=gen, device="cuda",
+                                                  dtype=torch.int32)
+            extra = ceiling(lambda c: sc.sspmm_cbsr_cuda(c, ct, ks), csc, DIM * isz,
+                            sector_bytes(csc, ks, DIM, isz),
+                            slice_cols=sc.k11_slice(isz, k, DIM, v, csc.nnz))
+            check("sspmm_cbsr", tag if k == K else f"{tag}_k{k}",
+                  lambda: sc.sspmm_cbsr_cuda(csc, ct, ks),
+                  lambda: sc.sspmm_cbsr_plain(csc, ct, ks),
+                  lambda: sample_plain(spmm_segsum(abs_csr(csc), ct.abs().float()), ks),
+                  csc, lambda: torch.sparse.mm(at, ct),
+                  csr_bytes(csc) + v * DIM * isz + v * k * (4 + isz),
+                  operand="At", dtype=tag, nodes=v, edges=e_live, dim=DIM, k=k,
+                  library_input="Aᵀ @ g, not sampled", **extra)
+            del ks
         del at, ct, x, vals
     return res, res[("spmm_csr", "A_float32")]["ms"] * 1e-3 / e_live
 

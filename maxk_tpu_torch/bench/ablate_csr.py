@@ -1,8 +1,8 @@
-"""Where the segsum path's CSR kernels K9 (`spmm_csr`) and K10
-(`spgemm_cbsr`) spend their time on the card.
+"""Where the segsum path's CSR kernels K9 (`spmm_csr`), K10 (`spgemm_cbsr`)
+and K11 (`sspmm_cbsr`) spend their time on the card.
 
     python -m maxk_tpu_torch.bench.ablate_csr [--graph reddit ... --scale 1.0 --dim 256
-        --k 32 --rounds 3] [--earlier path/to/spmm_csr.cu]
+        --k 16 32 64 --ops k9 k10 k11 --rounds 3] [--earlier path/to/spmm_csr.cu]
 
 On synthetic reddit at `--scale` (seed 123, right-normalized; `--graph
 rmat_v<nodes>_d<degree>` takes a graph of the degree sweep as
@@ -34,18 +34,50 @@ row), `cvt_round` (bf16 products by a conversion, not `__hmul2_rn`),
 kernel and the combine pass: the call's fixed cost), `grab1` / `grab4` (a
 warp takes one / four segments a take everywhere, in place of the rule
 that sizes the take by the work a warp has) and `l2_resident` (indices
-folded into the rows whose merged slots fill half of L2). `torch.sparse.mm` on the same CSR (K10: on the
-densified CBSR) beside them. With `--earlier`, a `spmm_csr.cu` of the
-design these kernels replaced (with its own `common.cuh` beside it) is
-built too and its K9 and K10 timed in the same turns (`earlier`).
+folded into the rows whose merged slots fill half of L2).
+
+K11 over Aᵀ (k random selectors a row): `kernel` (column slices of 512
+bytes a row of g where the rule takes them), `table_order` (its `work`
+table in table order), `one_lane_layout` (one slot a lane, 32 slots a
+walk of the edges: the earlier layout inside the new grid), `unsorted` (a
+lane's several slots not ordered by selector), `chunk16` (16 gathers a
+chunk a lane in place of 8), `static_units` / `dynamic_units` (every unit
+in turn, w, w + W, ..., or every unit from the counter, in place of the
+counter for the long segments' units where they outnumber the warps and
+turns for the rest), `other_pipe` (the other choice of chunks in flight
+and blocks an SM: at 8 or 16 lanes a segment, and in f32 at several
+slots a lane, without a chunk in flight during the adds at 6 blocks an
+SM; elsewhere with one at 4), `lean_warp` (no chunk in flight at 32
+lanes in f32 at several slots a lane too),
+`persistent_grid` / `hw_grid` (a persistent grid for every walk, or a
+warp a unit on as many blocks as that takes for every walk, in place of
+the first for walks in slices and the second over whole rows), `snake`
+(the in-turn units dealt back and forth, w, 2W - 1 - w, 2W + w, ...),
+`slice_256` (slices of 256 bytes), `sliced` / `whole_rows`
+(the walk in slices, or over whole rows, whatever the rule
+`spmm_csr.K11_SLICE_MIN_DEGREE` picks), `no_math` (gathers folded into
+one value), `cvt_round` (bf16 products by a conversion) and
+`l2_resident` (Aᵀ's column indices folded into the rows of g that fill
+half of L2: the sampled gather's ceiling).
+
+`torch.sparse.mm` on the same CSR (K10: on the densified CBSR; K11: Aᵀ @ g,
+not sampled) beside them. K10 and K11 run at each `--k`; `--ops` picks the
+kernels. With `--earlier`, a `spmm_csr.cu` of the earlier design (with
+its own `common.cuh` beside it: K9 and K10 that take the arguments the
+current ones take, and the K11 of `EARLIER_SIGNATURES`, before the work
+table and the counters) is built too and timed in the same turns
+(`earlier`).
 
 Every arm is the median of --rounds runs of 20 launches after one (and its
 range), the arms in turns, the order reversed each run. The arms that
-compute the function (`K9_EXACT`, `K10_EXACT`, `earlier`) are each held to
-the kernel's bits first (`exact`). `gather_ceiling_ms` is the gathered
-bytes (a row or k slots an edge) over the `l2_resident` arm's rate; the
-read-once bound (`bound_ms`) counts the CSR, its table, the features and
-the output once; K10's `hub_share` is the share of the edges whose source
+compute the function (`K9_EXACT`, `K10_EXACT`, `K11_EXACT`, `earlier`) are
+each held to the kernel's bits first (`exact`). `gathered_bytes` is a row
+(K9) or k slots (K10) an edge, and for K11 the 32-byte sectors of g's
+rows that the selectors touch (`sector_bytes`); `gather_ceiling_ms` is
+the `l2_resident` arm's time (`gather_ceiling_gbs` its rate); the
+read-once bound (`bound_ms`) counts what the function reads and writes,
+once: the CSR (`csr_bytes`: not the kernels' segment, work or hub
+tables), the features or CBSR, and the output; K10's `hub_share` is the share of the edges whose source
 it holds in shared memory.
 `ncu` says whether Nsight Compute is on PATH: the hardware counters (L2 hit
 rate, DRAM bytes, bank conflicts) need it. Prints one JSON line a graph.
@@ -117,22 +149,83 @@ K10_EDITS = {
 }
 K10_EXACT = ("kernel", "no_hubs", "cvt_round", "streaming_loads", "grab1", "grab4")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# the earlier design's entry points: no work order, hub table or counters
-EARLIER_SIGNATURES = {
-    "spmm_csr": (_P,) * 12 + (_I,) * 4 + (_P,),
-    "spgemm_cbsr": (_P,) * 15 + (_I,) * 6 + (_P,),
+# K11's adds, as they stand in the source (leading blanks left out)
+_K11_PAIR = "if (has0 && live[s]) add_bf16_pair(acc[s], v[u][s], v[u + 1][s], ap, has1);"
+_K11_F32 = ("if (has0 && live[s]) acc[s] = __fadd_rn(acc[s], __fmul_rn(v[u][s], a0));",
+            "if (has1 && live[s]) acc[s] = __fadd_rn(acc[s], __fmul_rn(v[u + 1][s], a1));")
+
+
+def _k11_layout(lanes: str, slots: str) -> list:
+    """The edit that gives K11's launch the lane layout (lanes a segment,
+    slots a lane) of the expressions `lanes` and `slots` of k."""
+    return [("const int lanes = k <= 8 ? 8 : k <= 16 ? 16 : 32;", f"const int lanes = {lanes};"),
+            ("const int slots = k <= 32 ? 1 : k <= 64 ? 2 : 4;", f"const int slots = {slots};")]
+
+
+K11_EDITS = {
+    "kernel": [],
+    "one_lane_layout": _k11_layout("32 + 0 * k", "1 + 0 * k"),
+    "unsorted": [("constexpr int kSortMin = 16;", "constexpr int kSortMin = 1 << 30;")],
+    "chunk16": [("constexpr int kK11Chunk = 8;", "constexpr int kK11Chunk = 16;")],
+    "slice_256": [("constexpr int kK11SliceBytes = 512;", "constexpr int kK11SliceBytes = 256;")],
+    "static_units": [("const int dyn = dyn_units >= nwarps ? dyn_units : 0;",
+                      "const int dyn = 0 * dyn_units;")],
+    "dynamic_units": [("const int dyn = dyn_units >= nwarps ? dyn_units : 0;",
+                       "const int dyn = units + 0 * dyn_units;")],
+    "other_pipe": [("constexpr bool kK11Pipelined = G < 32 || (sizeof(T) == 4 && S > 1);",
+                    "constexpr bool kK11Pipelined = !(G < 32 || (sizeof(T) == 4 && S > 1));")],
+    # the grid: persistent for every walk, or a warp a unit (as many blocks
+    # as that takes, the block scheduler dealing them out) for every walk;
+    # the in-turn units dealt back and forth; no chunk in flight at
+    # whole-warp groups in f32 too
+    "persistent_grid": [("const unsigned blocks = slice < dim ?",
+                         "const unsigned blocks = slice < dim || true ?")],
+    "hw_grid": [("const unsigned blocks = slice < dim ?",
+                 "const unsigned blocks = slice < dim && false ?")],
+    "lean_warp": [("constexpr bool kK11Pipelined = G < 32 || (sizeof(T) == 4 && S > 1);",
+                   "constexpr bool kK11Pipelined = G < 32;")],
+    "snake": [("if (unit >= dyn) return unit + nwarps;",
+               "if (unit >= dyn) return unit + 2 * nwarps - 1 - 2 * ((unit - dyn) % nwarps);")],
+    "no_math": [(_K11_PAIR, "if (has0 && live[s]) acc[s] = __uint_as_float("
+                            "__float_as_uint(acc[s]) ^ v[u][s] ^ v[u + 1][s] ^ ap);"),
+                (_K11_F32[0], "if (has0 && live[s]) acc[s] = __uint_as_float("
+                              "__float_as_uint(acc[s]) ^ __float_as_uint(v[u][s]) ^ "
+                              "__float_as_uint(v[u + 1][s]) ^ __float_as_uint(a0) ^ "
+                              "__float_as_uint(a1));"),
+                (_K11_F32[1], "")],
+    "cvt_round": [(_K11_PAIR, "if (has0 && live[s]) {\n"
+                              "acc[s] = __fadd_rn(acc[s], product<T>(bf16_lo(v[u][s]), "
+                              "bf16_lo(ap)));\n"
+                              "if (has1) acc[s] = __fadd_rn(acc[s], "
+                              "product<T>(bf16_lo(v[u + 1][s]), bf16_hi(ap)));\n}")],
 }
+K11_BF16_ONLY = ("cvt_round",)
+K11_EXACT = ("kernel", "table_order", "one_lane_layout", "unsorted", "chunk16", "static_units",
+             "dynamic_units", "other_pipe", "persistent_grid", "hw_grid", "snake", "lean_warp",
+             "slice_256", "sliced", "whole_rows", "cvt_round")
+# arms that the slicing rule (`spmm_csr.K11_SLICE_MIN_DEGREE`) decides: the
+# walk in slices where the rule would take whole rows, and the reverse
+K11_RULE_ARMS = {"sliced": (0, 1 << 30), "whole_rows": (1 << 40, 0)}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the earlier design's K11 entry point: no work order or counter (its K9 and
+# K10 take the arguments the current ones take, through the wrappers)
+EARLIER_SIGNATURES = {"sspmm_cbsr": (_P,) * 13 + (_I,) * 5 + (_P,)}
 
 
-def build_variants(earlier: str | None) -> dict:
-    """(kernel, variant) -> the loaded library of that copy of the source."""
+def build_variants(earlier: str | None, ops=("k9", "k10", "k11")) -> dict:
+    """(kernel, variant) -> the loaded library of that copy of the source,
+    for the kernels `ops` (the kernel itself always)."""
     from maxk_tpu_torch.ops import _native
 
     tool = "ablate_csr"
     src = (_native.CSRC / "spmm_csr.cu").read_text()
-    sources = {("csr", k): edited(tool, k, src, e) for k, e in K9_EDITS.items()}
-    sources.update({("k10", k): edited(tool, k, src, e) for k, e in K10_EDITS.items()})
+    sources = {("csr", k): edited(tool, k, src, e) for k, e in K9_EDITS.items()
+               if "k9" in ops or not e}
+    if "k10" in ops:
+        sources.update({("k10", k): edited(tool, k, src, e) for k, e in K10_EDITS.items()})
+    if "k11" in ops:
+        sources.update({("k11", k): edited(tool, k, src, e) for k, e in K11_EDITS.items() if e})
     if earlier:
         # its own common.cuh, inlined: the build's -I names this tree's
         path = Path(earlier).resolve()
@@ -147,38 +240,57 @@ def _entry(lib, name, argtypes):
     return fn
 
 
-def _slice_cols_of(lib):
-    """`ops/spmm_csr._slice_cols` as the variant `lib` lays K9 out: the
-    wrapper hands K9 one counter a column slice."""
+def _layout_of(lib):
+    """`csr_kernels_layout` as the variant `lib` lays K9 and K11 out:
+    itemsize -> (K9's slice, K10's cached rows, K11's slice) in columns; the
+    wrappers hand K9 and K11 one counter a column slice."""
     from maxk_tpu_torch.ops import _native
 
     fn = _entry(lib, "csr_kernels_layout", _native.SIGNATURES["csr_kernels_layout"])
 
-    def slice_cols(itemsize: int) -> int:
-        out = [ctypes.c_int(0) for _ in range(2)]
+    def layout(itemsize: int) -> tuple:
+        out = [ctypes.c_int(0) for _ in range(3)]
         err = fn(itemsize, 1, 1, *map(ctypes.byref, out))
         if err:
             raise RuntimeError(f"csr_kernels_layout: CUDA error {err}")
-        return out[0].value
-    return slice_cols
+        return tuple(o.value for o in out)
+    return layout
 
 
 def _through(entry: str, fn, call, lib):
     """`call()` (a wrapper's launch) with the wrapper's entry point `entry`
-    bound to `fn` and its K9 layout to that of `lib`, a variant's."""
+    bound to `fn` and its K9 and K11 layouts to those of `lib`, a
+    variant's."""
     from maxk_tpu_torch.ops import _native
     from maxk_tpu_torch.ops import spmm_csr as sc
 
     _native.library()
-    cols = _slice_cols_of(lib)
+    layout = _layout_of(lib)
 
     def run():
-        keep, keep_cols = _native._fns[entry], sc._slice_cols
-        _native._fns[entry], sc._slice_cols = fn, cols
+        keep = _native._fns[entry], sc._slice_cols, sc._k11_slice_cols
+        _native._fns[entry] = fn
+        sc._slice_cols = lambda itemsize: layout(itemsize)[0]
+        sc._k11_slice_cols = lambda itemsize: layout(itemsize)[2]
         try:
             return call()
         finally:
-            _native._fns[entry], sc._slice_cols = keep, keep_cols
+            _native._fns[entry], sc._slice_cols, sc._k11_slice_cols = keep
+    return run
+
+
+def _with_rule(rule: tuple, fn):
+    """`fn()` with K11's slicing rule set to (K11_SLICE_MIN_DEGREE,
+    K11_SLICE_MAX_K) = `rule`."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    def run():
+        keep = sc.K11_SLICE_MIN_DEGREE, sc.K11_SLICE_MAX_K
+        sc.K11_SLICE_MIN_DEGREE, sc.K11_SLICE_MAX_K = rule
+        try:
+            return fn()
+        finally:
+            sc.K11_SLICE_MIN_DEGREE, sc.K11_SLICE_MAX_K = keep
     return run
 
 
@@ -201,50 +313,62 @@ def _no_hubs(csr):
                     replace(t, hub_rows=t.hub_rows[:0], hub_slot=t.hub_slot[:0]))
 
 
+def _in_table_order(csr):
+    """`csr` whose segment table's `work` lists the segments in table (CSR)
+    order, not longest first."""
+    from dataclasses import replace
+
+    from maxk_tpu_torch.sparse.csr import CSRGraph
+
+    t = csr.segments
+    inv = torch.empty_like(t.order)
+    inv[t.order.long()] = torch.arange(t.num_segments, dtype=t.order.dtype, device=inv.device)
+    return CSRGraph(csr.indptr, csr.indices, csr.values,
+                    replace(t, work=t.work[inv.long()].contiguous()))
+
+
 def _table_ptrs(csr):
     t = csr.segments
     return [a.data_ptr() for a in (csr.indptr, csr.indices, csr.values, t.row, t.begin, t.part,
                                    t.multi_row, t.multi_part0, t.multi_nseg)]
 
 
-def _earlier_spmm(fn, csr, x):
+def _earlier_sspmm(fn, csc, g, sel):
     def run():
-        t = csr.segments
-        d = x.shape[1]
-        out = torch.empty_like(x)
-        part = torch.empty((t.num_parts, d), dtype=torch.float32, device=x.device)
-        err = fn(*_table_ptrs(csr), x.data_ptr(), out.data_ptr(), part.data_ptr(),
-                 t.num_segments, t.multi_row.shape[0], t.seg_edges, d,
+        t = csc.segments
+        k = sel.shape[1]
+        out = g.new_empty((csc.num_nodes, k))
+        part = torch.empty((t.num_parts, k), dtype=torch.float32, device=g.device)
+        err = fn(*_table_ptrs(csc), g.data_ptr(), sel.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 t.num_segments, t.multi_row.shape[0], t.seg_edges, k, g.shape[1],
                  torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"earlier spmm_csr: CUDA error {err}")
+            raise RuntimeError(f"earlier sspmm_cbsr: CUDA error {err}")
         return out
     return run
 
 
-def _earlier_spgemm(fn, csr, vals, sel, dim):
-    def run():
-        t = csr.segments
-        out = vals.new_empty((csr.num_nodes, dim))
-        part = torch.empty((t.num_parts, dim), dtype=torch.float32, device=vals.device)
-        mv, ms = torch.empty_like(vals), torch.empty_like(sel)
-        err = fn(*_table_ptrs(csr), vals.data_ptr(), sel.data_ptr(), mv.data_ptr(), ms.data_ptr(),
-                 out.data_ptr(), part.data_ptr(), t.num_segments, t.multi_row.shape[0],
-                 t.seg_edges, sel.shape[1], dim, vals.shape[0],
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"earlier spgemm_cbsr: CUDA error {err}")
-        return out
-    return run
+def sector_bytes(csr, sel, dim: int, itemsize: int) -> int:
+    """K11's gathered bytes: over the rows j of `csr` (Aᵀ), its live edges
+    × 32 × the distinct 32-byte sectors of a row of g (`itemsize`-byte
+    elements) that the selectors sel[j] in [0, dim) fall in. Computed on
+    the selectors' device."""
+    valid = (sel >= 0) & (sel < dim)
+    sec = torch.where(valid, sel.long() * itemsize // 32, -1).sort(dim=1).values
+    new = sec >= 0
+    new[:, 1:] &= sec[:, 1:] != sec[:, :-1]
+    deg = torch.diff(csr.indptr.long())
+    return 32 * int((deg * new.sum(dim=1)).sum())
 
 
-def _csr_bytes(csr, hubs: bool) -> int:
-    """The bytes of the CSR and its segment table (with its hub table where
-    `hubs`)."""
-    t = csr.segments
-    return sum(a.numel() * a.element_size() for a in (
-        csr.indptr, csr.indices, csr.values, t.row, t.begin, t.part, t.multi_row,
-        t.multi_part0, t.multi_nseg, t.order, *((t.hub_rows, t.hub_slot) if hubs else ())))
+def csr_bytes(csr) -> int:
+    """The bytes a function of the CSR reads of it, once: the row pointers
+    and the live edges' columns and weights. The segment, work and hub
+    tables are the kernels' own layout, not an input of what they compute,
+    so no bound counts them."""
+    live = int(csr.indptr[-1])
+    return (csr.indptr.numel() * csr.indptr.element_size()
+            + live * (csr.indices.element_size() + csr.values.element_size()))
 
 
 def hub_share(csr, rows: int) -> float:
@@ -290,19 +414,37 @@ def main(argv=None) -> list:
                    help="reddit, or rmat_v<nodes>_d<degree> as kernel_bench names them")
     p.add_argument("--scale", type=float, default=1.0)
     p.add_argument("--dim", type=int, default=256)
-    p.add_argument("--k", type=int, default=32)
+    p.add_argument("--k", type=int, nargs="+", default=[16, 32, 64],
+                   help="CBSR slots a row: K10 and K11 run at each")
+    p.add_argument("--ops", nargs="+", choices=("k9", "k10", "k11"), default=["k9", "k10", "k11"])
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--earlier", default=None,
                    help="a spmm_csr.cu of the earlier design, timed beside the kernels")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("ablate_csr: no CUDA device; the kernels run only on the card")
-    libs = build_variants(args.earlier)
+    libs = build_variants(args.earlier, args.ops)
     outs = []
     for name in args.graph:
         outs.append(probe_graph(args, name, libs))
         print(json.dumps(outs[-1]), flush=True)
     return outs
+
+
+def _arms(entry: str, variants, libs: dict, kernel_lib, call, earlier_lib=None) -> dict:
+    """Each variant's launch of `call` through `entry` (a variant without
+    edits is the kernel's own library), and the earlier design's where it
+    is given."""
+    from maxk_tpu_torch.ops import _native
+
+    sig = _native.SIGNATURES[entry]
+    arms = {}
+    for var in variants:
+        lib = libs.get(var, kernel_lib)
+        arms[var] = _through(entry, _entry(lib, entry, sig), call, lib)
+    if earlier_lib is not None:
+        arms["earlier"] = _through(entry, _entry(earlier_lib, entry, sig), call, earlier_lib)
+    return arms
 
 
 def probe_graph(args, name: str, libs: dict) -> dict:
@@ -311,7 +453,6 @@ def probe_graph(args, name: str, libs: dict) -> dict:
     from maxk_tpu_torch.data.datasets import load_dataset
     from maxk_tpu_torch.ops import _native
     from maxk_tpu_torch.ops import spmm_csr as sc
-    from maxk_tpu_torch.ops.cbsr_cuda import densify_plain
     from maxk_tpu_torch.sparse.graph import build_graph
 
     if name == "reddit":
@@ -321,79 +462,117 @@ def probe_graph(args, name: str, libs: dict) -> dict:
         (_, raw), = kernel_bench.load_suite(suite)
     graph = build_graph(raw, norm="right", device="cuda")
     del raw
-    v, d, k = graph.num_nodes, args.dim, args.k
+    v, d = graph.num_nodes, args.dim
     e_live = int(graph.csr.indptr[-1])
     l2 = _native.l2_cache_bytes()
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"device": torch.cuda.get_device_name(0), "graph": name, "scale": args.scale,
-           "nodes": v, "edges": e_live, "dim": d, "k": k,
+           "nodes": v, "edges": e_live, "dim": d, "k": args.k,
            "l2_bytes": l2, "ncu": shutil.which("ncu")}
-    earlier = args.earlier is not None
+    old = libs.get(("earlier", "")) if args.earlier else None
+    ex = ["earlier"] if old is not None else []
+    kernel_lib = libs[("csr", "kernel")]
     for dtype in (torch.float32, torch.bfloat16):
         tag, isz = str(dtype).split(".")[-1], torch.finfo(dtype).bits // 8
         suffix = "f32" if isz == 4 else "bf16"
-        layout = sc.kernel_layout(isz, k, d)
-        entry = f"spmm_csr_{suffix}"
-        sig = _native.SIGNATURES[entry]
-        vlibs = {var: libs[("csr", var)] for var in K9_EDITS
-                 if isz == 2 or var not in K9_BF16_ONLY}
-        fns = {var: _entry(lib, entry, sig) for var, lib in vlibs.items()}
-        if earlier:
-            old = _entry(libs[("earlier", "")], entry, EARLIER_SIGNATURES["spmm_csr"])
-        folded_rows = l2 // 2 // (d * isz)
-        for op, csr in (("A", graph.csr), ("At", graph.csc)):
-            x = torch.randn((v, d), generator=gen, device="cuda").to(dtype)
-            folded = folded_csr(csr, folded_rows)
-            arms = {var: _through(entry, fn, lambda c=csr: sc.spmm_csr_cuda(c, x), vlibs[var])
-                    for var, fn in fns.items()}
-            arms["l2_resident"] = _through(entry, fns["kernel"],
-                                           lambda: sc.spmm_csr_cuda(folded, x), vlibs["kernel"])
-            if earlier:
-                arms["earlier"] = _earlier_spmm(old, csr, x)
-            a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
-                                        csr.values.to(dtype), (v, v))
-            arms["torch_sparse_mm"] = lambda: torch.sparse.mm(a, x)
-            exact_arms = [*K9_EXACT] + (["earlier"] if earlier else [])
-            out[f"spmm_csr_{op}_{tag}"] = _case(
-                arms, exact_arms, args.rounds, arms["kernel"],
-                _csr_bytes(csr, False) + 2 * v * d * isz, e_live * d * isz,
-                slice_cols=layout["slice_cols"], folded_rows=folded_rows)
-            del x, folded, arms, a
-
-        entry = f"spgemm_cbsr_{suffix}"
-        sig = _native.SIGNATURES[entry]
-        vlibs = {var: libs[("k10" if var in K10_EDITS else "csr", var)]
-                 for var in ("kernel", *K10_EDITS)}
-        fns = {var: _entry(lib, entry, sig) for var, lib in vlibs.items()}
-        csr = graph.csr
-        vals = torch.randn((v, k), generator=gen, device="cuda").to(dtype)
-        sel = torch.randint(0, d, (v, k), generator=gen, device="cuda", dtype=torch.int32)
-        folded_rows = l2 // 2 // (k * (2 + isz))
-        folded, bare = folded_csr(csr, folded_rows, hubs=True), _no_hubs(csr)
-        arms = {var: _through(entry, fn, lambda: sc.spgemm_cbsr_cuda(csr, vals, sel, d),
-                              vlibs[var])
-                for var, fn in fns.items()}
-        arms["no_hubs"] = _through(entry, fns["kernel"],
-                                   lambda: sc.spgemm_cbsr_cuda(bare, vals, sel, d),
-                                   vlibs["kernel"])
-        arms["l2_resident"] = _through(entry, fns["kernel"],
-                                       lambda: sc.spgemm_cbsr_cuda(folded, vals, sel, d),
-                                       vlibs["kernel"])
-        if earlier:
-            old = _entry(libs[("earlier", "")], entry, EARLIER_SIGNATURES["spgemm_cbsr"])
-            arms["earlier"] = _earlier_spgemm(old, csr, vals, sel, d)
-        a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(), csr.values.to(dtype),
-                                    (v, v))
-        dense = densify_plain(vals, sel, d)
-        arms["torch_sparse_mm"] = lambda: torch.sparse.mm(a, dense)
-        out[f"spgemm_cbsr_{tag}"] = _case(
-            arms, [*K10_EXACT] + (["earlier"] if earlier else []), args.rounds,
-            arms["kernel"], _csr_bytes(csr, True) + v * k * (isz + 4) + v * d * isz,
-            e_live * k * (2 + isz), hub_rows=min(layout["k10_cache_rows"],
-                                                 csr.segments.hub_rows.shape[0]),
-            hub_share=hub_share(csr, layout["k10_cache_rows"]), folded_rows=folded_rows)
-        del vals, sel, folded, bare, arms, a, dense
+        if "k9" in args.ops:
+            k9 = {var: libs[("csr", var)] for var in K9_EDITS}
+            variants = [var for var in K9_EDITS if isz == 2 or var not in K9_BF16_ONLY]
+            folded_rows = l2 // 2 // (d * isz)
+            for op, csr in (("A", graph.csr), ("At", graph.csc)):
+                x = torch.randn((v, d), generator=gen, device="cuda").to(dtype)
+                folded = folded_csr(csr, folded_rows)
+                arms = _arms(f"spmm_csr_{suffix}", variants, k9, kernel_lib,
+                             lambda c=csr: sc.spmm_csr_cuda(c, x), old)
+                arms["l2_resident"] = _arms(f"spmm_csr_{suffix}", ["kernel"], k9, kernel_lib,
+                                            lambda: sc.spmm_csr_cuda(folded, x))["kernel"]
+                a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(),
+                                            csr.values.to(dtype), (v, v))
+                arms["torch_sparse_mm"] = lambda: torch.sparse.mm(a, x)
+                out[f"spmm_csr_{op}_{tag}"] = _case(
+                    arms, [*K9_EXACT, *ex], args.rounds, arms["kernel"],
+                    csr_bytes(csr) + 2 * v * d * isz, e_live * d * isz,
+                    slice_cols=sc.kernel_layout(isz, 1, d)["slice_cols"],
+                    folded_rows=folded_rows)
+                del x, folded, arms, a
+        for k in args.k:
+            sel = torch.randint(0, d, (v, k), generator=gen, device="cuda", dtype=torch.int32)
+            if "k10" in args.ops:
+                out[f"spgemm_cbsr_{tag}_k{k}"] = _k10_case(args, graph, libs, kernel_lib, old,
+                                                          dtype, sel, gen)
+            if "k11" in args.ops:
+                out[f"sspmm_cbsr_{tag}_k{k}"] = _k11_case(args, graph, libs, kernel_lib, old,
+                                                         dtype, sel, gen)
+            del sel
     return out
+
+
+def _k10_case(args, graph, libs, kernel_lib, old, dtype, sel, gen) -> dict:
+    from maxk_tpu_torch.ops import _native
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.ops.cbsr_cuda import densify_plain
+
+    v, d, k = graph.num_nodes, args.dim, sel.shape[1]
+    isz = torch.finfo(dtype).bits // 8
+    entry = f"spgemm_cbsr_{'f32' if isz == 4 else 'bf16'}"
+    layout = sc.kernel_layout(isz, k, d)
+    csr = graph.csr
+    e_live = int(csr.indptr[-1])
+    vals = torch.randn((v, k), generator=gen, device="cuda").to(dtype)
+    folded_rows = _native.l2_cache_bytes() // 2 // (k * (2 + isz))
+    folded, bare = folded_csr(csr, folded_rows, hubs=True), _no_hubs(csr)
+    k10 = {var: libs[("k10", var)] for var in K10_EDITS}
+    arms = _arms(entry, ["kernel", *K10_EDITS], k10, kernel_lib,
+                 lambda: sc.spgemm_cbsr_cuda(csr, vals, sel, d), old)
+    arms["no_hubs"] = _arms(entry, ["kernel"], k10, kernel_lib,
+                            lambda: sc.spgemm_cbsr_cuda(bare, vals, sel, d))["kernel"]
+    arms["l2_resident"] = _arms(entry, ["kernel"], k10, kernel_lib,
+                                lambda: sc.spgemm_cbsr_cuda(folded, vals, sel, d))["kernel"]
+    a = torch.sparse_csr_tensor(csr.indptr.long(), csr.indices.long(), csr.values.to(dtype),
+                                (v, v))
+    dense = densify_plain(vals, sel, d)
+    arms["torch_sparse_mm"] = lambda: torch.sparse.mm(a, dense)
+    return _case(
+        arms, [*K10_EXACT, *(["earlier"] if old is not None else [])], args.rounds,
+        arms["kernel"], csr_bytes(csr) + v * k * (isz + 4) + v * d * isz,
+        e_live * k * (2 + isz), k=k,
+        hub_rows=min(layout["k10_cache_rows"], csr.segments.hub_rows.shape[0]),
+        hub_share=hub_share(csr, layout["k10_cache_rows"]), folded_rows=folded_rows)
+
+
+def _k11_case(args, graph, libs, kernel_lib, old, dtype, sel, gen) -> dict:
+    from maxk_tpu_torch.ops import _native
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    v, d, k = graph.num_nodes, args.dim, sel.shape[1]
+    isz = torch.finfo(dtype).bits // 8
+    entry = f"sspmm_cbsr_{'f32' if isz == 4 else 'bf16'}"
+    csc = graph.csc
+    g = torch.randn((v, d), generator=gen, device="cuda").to(dtype)
+    folded_rows = _native.l2_cache_bytes() // 2 // (d * isz)
+    folded = folded_csr(csc, folded_rows)
+    k11 = {var: libs[("k11", var)] for var, e in K11_EDITS.items() if e}
+    variants = [var for var in K11_EDITS if isz == 2 or var not in K11_BF16_ONLY]
+    arms = _arms(entry, variants, k11, kernel_lib, lambda: sc.sspmm_cbsr_cuda(csc, g, sel))
+    for var, rule in K11_RULE_ARMS.items():
+        arms[var] = _with_rule(rule, arms["kernel"])
+    arms["slice_256"] = _with_rule(K11_RULE_ARMS["sliced"], arms["slice_256"])
+    arms["l2_resident"] = _arms(entry, ["kernel"], k11, kernel_lib,
+                                lambda: sc.sspmm_cbsr_cuda(folded, g, sel))["kernel"]
+    listed = _in_table_order(csc)
+    arms["table_order"] = _arms(entry, ["kernel"], k11, kernel_lib,
+                                lambda: sc.sspmm_cbsr_cuda(listed, g, sel))["kernel"]
+    if old is not None:
+        arms["earlier"] = _earlier_sspmm(
+            _entry(old, entry, EARLIER_SIGNATURES["sspmm_cbsr"]), csc, g, sel)
+    a = torch.sparse_csr_tensor(csc.indptr.long(), csc.indices.long(), csc.values.to(dtype),
+                                (v, v))
+    arms["torch_sparse_mm"] = lambda: torch.sparse.mm(a, g)
+    exact = [var for var in K11_EXACT if var in arms] + (["earlier"] if old is not None else [])
+    return _case(arms, exact, args.rounds, arms["kernel"],
+                 csr_bytes(csc) + v * d * isz + v * k * (4 + isz),
+                 sector_bytes(csc, sel, d, isz), k=k, folded_rows=folded_rows,
+                 slice_cols=sc.k11_slice(isz, k, d, v, csc.nnz))
 
 
 if __name__ == "__main__":

@@ -33,6 +33,34 @@
 // the H100, 8.6 and 7.8 TB/s of gathered rows: what binds is the rate at
 // which L2 and L1 serve rows to the SMs, not device memory.
 //
+// K11 is bound the same way, by sectors: an edge of row j of A^T reads
+// k elements of g's row col_e at sel[j], so it brings the 32-byte sectors
+// of that row which sel[j] touches, the same set for every edge of the row:
+// of D = 256 columns, k = 32 distinct selectors touch 21.2 of 32 sectors
+// in f32 (14.2 of 16 in bf16), k = 64 28.9 (15.9), k = 16 13.1 (10.5),
+// whatever lane asks for them (`ablate_csr` counts them: gathered_bytes).
+// What its design does about it (bench/ablate_csr.py, on the H100):
+//  - rows stay in L2 where they are gathered often: on a graph whose rows
+//    of g are gathered 64 times or more (E/V, `ops/spmm_csr.k11_slice`)
+//    and k <= 32, g is walked in column slices of 512 bytes a row, slice
+//    after slice; f32 rows of 1 KB missed L2 (reddit x1.0, k = 32: 8.1 ms
+//    whole, 6.9 sliced, against 6.6 with every row an L2 hit);
+//  - no lane idles and the edges are walked once: a segment gets 8 lanes
+//    for k <= 8, 16 for k <= 16, else the warp, with up to 4 slots a lane,
+//    ordered by selector so an edge's gathers read disjoint sectors (k = 64
+//    as two walks of one slot a lane: 1.7x slower);
+//  - no warp waits on the schedule: segments in the work order (longest
+//    first) from one 16-byte `work` entry each; over whole rows a warp a
+//    unit, the block scheduler dealing the blocks out as SMs free up (the
+//    balance of a counter without its atomics); in slices a persistent
+//    grid, the long units from a counter where they outnumber the warps,
+//    the short ones in turn (one atomic a short unit cost 1.5x at 65,536
+//    short segments);
+//  - columns and weights two batches ahead of the gathers, a chunk of 8
+//    gathers a lane in flight while the last is added (at 32 lanes of one
+//    slot, and bf16 of several: none, and 6 blocks an SM in place of 4),
+//    bf16 products two edges at a time by __hmul2_rn.
+//
 // K9 walks x in column slices of 256 bytes a row (kSliceVecs: 64 f32 or
 // 128 bf16 columns; slices of 128 or 512 bytes measured slower: more work
 // an edge, or fewer rows in L1), slice after slice, on a persistent grid
@@ -59,13 +87,15 @@
 // (at most kK10Blocks blocks an SM) keeps the hub rows' merged slots in
 // shared memory (254 / 381 rows of 32 slots in f32 / bf16 at reddit x1.0,
 // 8.5% / 10.7% of the references) and has the next U edges' slots in
-// flight while it adds the current ones. K11 gathers k elements an edge (a
-// lane a slot) into registers.
+// flight while it adds the current ones. K11 gathers k elements an edge
+// into registers, S slots a lane.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // K11, the merge and combine passes: warps a block
+constexpr int kWarps = 8;  // the merge and combine passes: warps a block
 // K9: a persistent grid, kK9Blocks blocks of kK9Threads an SM
 constexpr int kK9Threads = 512;
 constexpr int kK9Blocks = 1;
@@ -90,6 +120,28 @@ constexpr int kSmemBytes = 227 * 1024;
 constexpr int kBlockSmem = kSmemBytes / kK10Blocks - (kK10Blocks > 1 ? 1024 : 0);
 constexpr int kGrab = 4;
 constexpr int kMinTakes = 16;
+// K11: blocks of kK11Threads; a sliced walk of g takes column slices of
+// kK11SliceBytes a row; a lane gathers kK11Chunk elements a chunk
+// (kK11Chunk / S edges). At 8 or 16 lanes a segment, and in f32 at
+// several slots a lane, it has the next chunk's in flight while it adds
+// one, at most kK11Blocks blocks an SM; at whole-warp groups of one slot a
+// lane, and in bf16 of several, none, at kK11BlocksLean blocks an SM
+// (bench/ablate_csr.py, arms other_pipe and lean_warp: the other choice
+// up to 2.1x slower; f32 at two slots a lane without a chunk in flight up
+// to 8% faster at 262,144 rows, 1.5x slower at 65,536); segments of
+// kSortMin edges or more order their slots by selector where a lane holds
+// several
+constexpr int kK11SliceBytes = 512;
+constexpr int kK11Threads = 256;
+constexpr int kK11Blocks = 4;
+constexpr int kK11BlocksLean = 6;
+constexpr int kK11Warps = kK11Threads / 32;
+template <typename T, int G, int S>
+constexpr bool kK11Pipelined = G < 32 || (sizeof(T) == 4 && S > 1);
+template <typename T, int G, int S>
+constexpr int kK11BlocksOf = kK11Pipelined<T, G, S> ? kK11Blocks : kK11BlocksLean;
+constexpr int kK11Chunk = 8;
+constexpr int kSortMin = 16;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -556,55 +608,228 @@ __global__ void __launch_bounds__(kK10Threads, kK10Blocks)
   }
 }
 
-// K11: a warp a segment of row j of A^T, lane l slot l0 + l; U edges'
-// gathers in flight, added in edge order.
-template <typename T, int U>
-__global__ void __launch_bounds__(kWarps * 32)
-    sspmm_cbsr_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                      const float* __restrict__ values, const int* __restrict__ seg_row,
-                      const int* __restrict__ seg_begin, const int* __restrict__ seg_part,
-                      const T* __restrict__ gr, const int* __restrict__ sel,
-                      T* __restrict__ out, float* __restrict__ part, int nseg, int seg_edges,
-                      int k, int dim) {
+// K11's bf16 products two edges at a time: acc += T(x0 * a0), then (where
+// `has1`) T(x1 * a1), by one __hmul2_rn; x0, x1 bf16 bits in the low half,
+// ap = T(a0) | T(a1) << 16. Bit-equal to T(__fmul_rn) a product.
+__device__ __forceinline__ void add_bf16_pair(float& acc, unsigned x0, unsigned x1, unsigned ap,
+                                              bool has1) {
+  const unsigned p = hmul2_bits(__byte_perm(x0, x1, 0x5410), ap);
+  acc = __fadd_rn(acc, bf16_lo(p));
+  if (has1) acc = __fadd_rn(acc, bf16_hi(p));
+}
+
+// K11: its grid walks g's column slices (`slice` columns) in order: a
+// persistent grid where there are several, else a warp a unit. For each
+// slice its warps take units of kSegs segments in the work order (`work`: each segment's row, first edge, edge count and partial row
+// in one 16-byte load), the long ones from the slice's counter and the
+// short ones in turn, a lane group of G lanes a segment of row j of A^T, S
+// slots a lane (slot l0 + s·G + lane of the group). A slot belongs to the
+// slice its selector falls in (one outside [0, dim) to the first, as 0).
+// The segment's edges are walked once a slice for all G·S slots: their
+// columns and weights G at a time (a batch, an edge a lane of the group),
+// two batches ahead; their gathers kU edges at a time (a chunk), the next
+// chunk's in flight while the current one's are added in edge order where
+// kPipe; a slice in which no slot of the warp's segments gathers is not
+// walked. Where S > 1 and a segment of the warp has kSortMin edges or
+// more, each group first orders its slots by selector (ranks, then a
+// scatter through shared memory), so gather s of an edge reads the sectors
+// of the s-th G columns in order and no two gathers of an edge read the
+// same sector twice.
+template <typename T, int G, int S>
+__global__ void __launch_bounds__(kK11Threads, kK11BlocksOf<T, G, S>)
+    sspmm_cbsr_kernel(const int* __restrict__ indices, const float* __restrict__ values,
+                      const int4* __restrict__ work, const T* __restrict__ gr,
+                      const int* __restrict__ sel, T* __restrict__ out, float* __restrict__ part,
+                      int* __restrict__ counters, int nseg, int long_segs, int k, int dim,
+                      int slice) {
+  constexpr bool kPair = sizeof(T) == 2;
+  constexpr bool kPipe = kK11Pipelined<T, G, S>;  // the next chunk's gathers in flight
+  constexpr int kSegs = 32 / G;
+  // edges a chunk: kK11Chunk gathers a lane, at least a bf16 pair
+  constexpr int kU = kK11Chunk / S < 2 ? 2 : kK11Chunk / S < G ? kK11Chunk / S : G;
+  static_assert(G % kU == 0, "a chunk lies inside a batch");
+  __shared__ int2 ranked[S > 1 ? kK11Warps : 1][S > 1 ? 32 * S : 1];
   const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (s >= nseg) return;
-  const Segment g = segment(indptr, seg_row, seg_begin, seg_part, s, seg_edges);
+  const int grp = lane / G, lg = lane % G, src0 = grp * G;
+  const int units = (nseg + kSegs - 1) / kSegs;
+  // raw bits of g's elements: f32, or bf16 in the low half
+  using Raw = std::conditional_t<kPair, unsigned short, float>;
+  const Raw* graw = reinterpret_cast<const Raw*>(gr);
+  // the group's segment of a unit: (row, first edge, edges, part), no edges
+  // past the table
+  auto segment_of = [&](int unit) {
+    const int os = unit * kSegs + grp;
+    return os < nseg ? work[os] : make_int4(0, 0, 0, -1);
+  };
+  // units [0, dyn), whose segments are long (`long_segs`, the first of the
+  // work order), where there are at least as many as warps: warp w of W
+  // takes unit w, then one at a time from the slice's counter (W + its
+  // count), which evens out the warps' loads; the short units after them go
+  // round in turn, dyn + w, dyn + w + W, ..., since there a queued atomic
+  // would cost as much as the unit (every unit from the counter: 1.5x
+  // slower at 65,536 short segments)
+  const int nwarps = gridDim.x * kK11Warps;
+  const int gw = blockIdx.x * kK11Warps + (threadIdx.x >> 5);
+  const int dyn_units = (long_segs + kSegs - 1) / kSegs;
+  const int dyn = dyn_units >= nwarps ? dyn_units : 0;  // fewer than a warp each: all in turn
 #pragma unroll 1
-  for (int l0 = 0; l0 < k; l0 += 32) {
-    const int l = l0 + lane;
-    const int sc = l < k ? sel[(int64_t)g.row * k + l] : -1;
-    const bool valid = (unsigned)sc < (unsigned)dim;  // never an address outside the row
-    float acc = 0.0f;
+  for (int t0 = 0, sl = 0; t0 < dim; t0 += slice, ++sl) {
+    int* ctr = counters + sl;
+    auto next = [&](int unit) {
+      if (unit >= dyn) return unit + nwarps;
+      const int u = nwarps + __shfl_sync(maxk::kFull, lane == 0 ? atomicAdd(ctr, 1) : 0, 0);
+      return u < dyn ? u : dyn + gw;
+    };
 #pragma unroll 1
-    for (int64_t e0 = g.begin; e0 < g.end; e0 += 32) {
-      const int n = g.end - e0 < 32 ? (int)(g.end - e0) : 32;
-      int c = 0;
-      float a = 0.0f;
-      if (lane < n) {
-        c = indices[e0 + lane];
-        a = round_to<T>(values[e0 + lane]);
-      }
+    for (int unit = gw < dyn ? gw : dyn + gw; unit < units; unit = next(unit)) {
+      const int4 wk = segment_of(unit);
+      const int row = wk.x, n = wk.z, own = wk.w;
+      const int64_t begin = wk.y;
+      const bool has = unit * kSegs + grp < nseg;
+      const int nmax = __reduce_max_sync(maxk::kFull, n);
 #pragma unroll 1
-      for (int j = 0; j < n; j += U) {
-        float gv[U];
+      for (int l0 = 0; l0 < k; l0 += G * S) {
+        int slot[S], col[S];  // the lane's slots and their selectors, -1 outside [0, dim)
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int64_t cu = __shfl_sync(maxk::kFull, c, (j + u) & 31);
-          gv[u] = j + u < n && valid ? maxk::load_f32(gr + cu * dim + sc) : 0.0f;
+        for (int s = 0; s < S; ++s) {
+          slot[s] = l0 + s * G + lg;
+          const int c = has && slot[s] < k ? sel[(int64_t)row * k + slot[s]] : -1;
+          col[s] = (unsigned)c < (unsigned)dim ? c : -1;  // never an address outside the row
         }
+        if constexpr (S > 1) {
+          if (nmax >= kSortMin) {  // warp-uniform
+            // rank in the group by (selector, slot): one outside [0, dim)
+            // above all others, slots past k last
+            int key[S], rank[S];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const float au = __shfl_sync(maxk::kFull, a, (j + u) & 31);
-          if (j + u < n && valid) acc = __fadd_rn(acc, product<T>(gv[u], au));
+            for (int s = 0; s < S; ++s) {
+              key[s] = slot[s] >= k ? 0x7fffffff : col[s] < 0 ? dim : col[s];
+              rank[s] = 0;
+            }
+#pragma unroll
+            for (int s2 = 0; s2 < S; ++s2) {
+#pragma unroll 4
+              for (int i = 0; i < G; ++i) {
+                const int kt = __shfl_sync(maxk::kFull, key[s2], src0 + i);
+#pragma unroll
+                for (int s = 0; s < S; ++s)
+                  rank[s] += kt < key[s] || (kt == key[s] && s2 * G + i < s * G + lg);
+              }
+            }
+            int2* r = ranked[threadIdx.x >> 5] + grp * G * S;
+#pragma unroll
+            for (int s = 0; s < S; ++s) r[rank[s]] = make_int2(slot[s], col[s]);
+            __syncwarp();
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              const int2 v = r[s * G + lg];
+              slot[s] = v.x;
+              col[s] = v.y;
+            }
+            __syncwarp();  // the next scatter overwrites what this read
+          }
+        }
+        // the lane's slots of this slice, and those among them that gather
+        bool mine[S], live[S];
+        bool any = false;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          mine[s] = col[s] < 0 ? t0 == 0 : col[s] >= t0 && col[s] - t0 < slice;
+          live[s] = mine[s] && col[s] >= 0;
+          any |= live[s];
+        }
+        float acc[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) acc[s] = 0.0f;
+        if (__any_sync(maxk::kFull, any)) {  // else the slice's slots sum to 0
+          // batch b's columns and weights (c, w), b + 1's and b + 2's in
+          // flight: lane lg holds edge e0 + lg of each; w holds f32 bits,
+          // or T(a) in the low half (wp: bf16 edges lg, lg + 1 as a pair)
+          int c = 0, c1 = 0, c2 = 0;
+          unsigned w = 0, w1 = 0, w2 = 0;
+          auto fetch = [&](int e, int& cc, unsigned& ww) {
+            if (e + lg < n) {
+              cc = indices[begin + e + lg];
+              const float a = values[begin + e + lg];
+              ww = kPair ? __bfloat16_as_ushort(__float2bfloat16_rn(a)) : __float_as_uint(a);
+            }
+          };
+          auto pair = [&](unsigned x) {
+            return kPair ? __byte_perm(x, __shfl_down_sync(maxk::kFull, x, 1), 0x5410) : x;
+          };
+          fetch(0, c, w);
+          fetch(G, c1, w1);
+          fetch(2 * G, c2, w2);
+          unsigned wp = pair(w);
+          // chunk j: edges [j, j + kU) of the batch at j & ~(G - 1), their
+          // gathers into v (kPipe: the next chunk's into vn while v's are
+          // added)
+          Raw v[kU][S], vn[kPipe ? kU : 1][kPipe ? S : 1];
+          auto gather = [&](int j, int cc, Raw(&r)[kU][S]) {
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int64_t cu = __shfl_sync(maxk::kFull, cc, src0 + (j & (G - 1)) + u);
+#pragma unroll
+              for (int s = 0; s < S; ++s)
+                r[u][s] = j + u < n && live[s] ? graw[cu * dim + col[s]] : Raw(0);
+            }
+          };
+          if constexpr (kPipe) gather(0, c, v);
+#pragma unroll 1
+          for (int j = 0; j < nmax; j += kU) {
+            const int jn = j + kU;
+            const bool turn = (jn & (G - 1)) == 0;  // the next chunk opens a batch
+            if constexpr (kPipe) {
+              if (jn < nmax) gather(jn, turn ? c1 : c, vn);
+            } else {
+              gather(j, c, v);
+            }
+            const int u0 = src0 + (j & (G - 1));
+#pragma unroll
+            for (int u = 0; u < kU; u += 2) {
+              const bool has0 = j + u < n, has1 = j + u + 1 < n;
+              if constexpr (kPair) {
+                const unsigned ap = __shfl_sync(maxk::kFull, wp, u0 + u);
+#pragma unroll
+                for (int s = 0; s < S; ++s)
+                  if (has0 && live[s]) add_bf16_pair(acc[s], v[u][s], v[u + 1][s], ap, has1);
+              } else {
+                const float a0 = __uint_as_float(__shfl_sync(maxk::kFull, w, u0 + u));
+                const float a1 = __uint_as_float(__shfl_sync(maxk::kFull, w, u0 + u + 1));
+#pragma unroll
+                for (int s = 0; s < S; ++s) {
+                  if (has0 && live[s]) acc[s] = __fadd_rn(acc[s], __fmul_rn(v[u][s], a0));
+                  if (has1 && live[s]) acc[s] = __fadd_rn(acc[s], __fmul_rn(v[u + 1][s], a1));
+                }
+              }
+            }
+            if (turn) {
+              c = c1;
+              w = w1;
+              c1 = c2;
+              w1 = w2;
+              fetch(jn + 2 * G, c2, w2);
+              wp = pair(w);
+            }
+            if constexpr (kPipe) {
+#pragma unroll
+              for (int u = 0; u < kU; ++u)
+#pragma unroll
+                for (int s = 0; s < S; ++s) v[u][s] = vn[u][s];
+            }
+          }
+        }
+        if (has) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            if (!mine[s] || slot[s] >= k) continue;
+            if (own < 0)
+              maxk::store_f32(out + (int64_t)row * k + slot[s], acc[s]);
+            else
+              part[(int64_t)own * k + slot[s]] = acc[s];
+          }
         }
       }
-    }
-    if (l < k) {
-      if (g.part < 0)
-        maxk::store_f32(out + (int64_t)g.row * k + l, acc);
-      else
-        part[(int64_t)g.part * k + l] = acc;
     }
   }
 }
@@ -627,12 +852,13 @@ int launch_combine(const void* part, const void* multi_row, const void* multi_pa
 }
 
 // A CSR and its segment table: K10 takes all of it, K9 no hub table, K11
-// neither a work order nor a hub table.
+// the segments in work order as one table (`work`) in place of `order`.
 struct Csr {
   const int *indptr, *indices;
   const float* values;
   const int *seg_row, *seg_begin, *seg_part, *multi_row, *multi_part0, *multi_nseg;
   const int *order, *hub_rows, *hub_slot;
+  const int4* work;
 };
 
 Csr csr_of(const void* indptr, const void* indices, const void* values, const void* seg_row,
@@ -644,7 +870,7 @@ Csr csr_of(const void* indptr, const void* indices, const void* values, const vo
              static_cast<const int*>(seg_begin), static_cast<const int*>(seg_part),
              static_cast<const int*>(multi_row), static_cast<const int*>(multi_part0),
              static_cast<const int*>(multi_nseg), static_cast<const int*>(order),
-             static_cast<const int*>(hub_rows),  static_cast<const int*>(hub_slot)};
+             static_cast<const int*>(hub_rows),  static_cast<const int*>(hub_slot), nullptr};
 }
 
 // A persistent grid of at most `per_sm` blocks an SM, and no more blocks
@@ -741,15 +967,52 @@ int launch_spgemm(const Csr& a, const void* vals, const void* sel, void* mvals, 
                            stream);
 }
 
+template <typename T, int G, int S>
+int launch_sspmm_kernel(const Csr& a, const T* g, const int* sel, T* o, float* p, int* ctr,
+                        int nseg, int long_segs, int k, int dim, int slice, cudaStream_t stream) {
+  const int64_t units = (nseg + 32 / G - 1) / (32 / G);
+  // a walk in slices: a persistent grid, every SM on one slice at a time; a
+  // walk of whole rows: a warp a unit, the block scheduler dealing the
+  // blocks out in the work order as SMs free up (bench/ablate_csr.py: a
+  // persistent grid over whole rows up to 1.24x slower, at most 4% faster;
+  // a warp a unit in slices 1.12-1.27x slower)
+  const unsigned blocks = slice < dim ? persistent_blocks(kK11BlocksOf<T, G, S>, units, kK11Warps)
+                                      : (unsigned)((units + kK11Warps - 1) / kK11Warps);
+  if (blocks < 1) return (int)cudaErrorInvalidDevice;
+  sspmm_cbsr_kernel<T, G, S><<<blocks, kK11Threads, 0, stream>>>(
+      a.indices, a.values, a.work, g, sel, o, p, ctr, nseg, long_segs, k, dim, slice);
+  return (int)cudaGetLastError();
+}
+
+// K11's column slice, where it walks g in slices, for features of
+// `itemsize` bytes: kK11SliceBytes a row
+int k11_slice_cols(int itemsize) { return kK11SliceBytes / itemsize; }
+
 template <typename T>
-int launch_sspmm(const Csr& a, const void* g, const void* sel, void* out, void* part, int nseg,
-                 int nmulti, int seg_edges, int k, int dim, cudaStream_t stream) {
-  if (nseg <= 0 || seg_edges < 1 || k < 1 || dim < 1) return (int)cudaErrorInvalidValue;
-  sspmm_cbsr_kernel<T, 8><<<blocks_for(nseg), kWarps * 32, 0, stream>>>(
-      a.indptr, a.indices, a.values, a.seg_row, a.seg_begin, a.seg_part,
-      static_cast<const T*>(g), static_cast<const int*>(sel), static_cast<T*>(out),
-      static_cast<float*>(part), nseg, seg_edges, k, dim);
-  const int err = (int)cudaGetLastError();
+int launch_sspmm(const Csr& a, const void* g, const void* sel, void* out, void* part,
+                 void* counters, int nseg, int nmulti, int nctr, int long_segs, int k, int dim,
+                 int slice, cudaStream_t stream) {
+  if (nseg <= 0 || long_segs < 0 || k < 1 || dim < 1 || slice < 1 || counters == nullptr ||
+      nctr < (dim - 1) / slice + 1 || a.work == nullptr ||
+      reinterpret_cast<uintptr_t>(a.work) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const T* gt = static_cast<const T*>(g);
+  const int* st = static_cast<const int*>(sel);
+  T* o = static_cast<T*>(out);
+  float* p = static_cast<float*>(part);
+  int* ctr = static_cast<int*>(counters);
+  // the lane layout: a segment's lanes, and slots a lane (past G·S slots
+  // the edges are walked again for the next G·S); 16 lanes of 2 slots at
+  // k <= 32, or 8 of 4, measured slower than a warp of one
+  const int lanes = k <= 8 ? 8 : k <= 16 ? 16 : 32;
+  const int slots = k <= 32 ? 1 : k <= 64 ? 2 : 4;
+  int err = (int)cudaErrorInvalidValue;
+#define K11_LAYOUT(G, S)                                                                   \
+  if (lanes == G && slots == S)                                                            \
+    err = launch_sspmm_kernel<T, G, S>(a, gt, st, o, p, ctr, nseg, long_segs, k, dim, slice,  \
+                                       stream);
+  K11_LAYOUT(8, 1) K11_LAYOUT(16, 1) K11_LAYOUT(32, 1) K11_LAYOUT(32, 2) K11_LAYOUT(32, 4)
+#undef K11_LAYOUT
   if (err != 0) return err;
   return launch_combine<T>(part, a.multi_row, a.multi_part0, a.multi_nseg, out, nmulti, k,
                            stream);
@@ -759,9 +1022,13 @@ int launch_sspmm(const Csr& a, const void* g, const void* sel, void* out, void* 
 
 // C interface (ctypes). Each takes the CSR (indptr, indices, values) and
 // its segment table (row, begin, part; multi_row, multi_part0, multi_nseg;
-// K9 and K10 also the work order, and `nctr` zeroed int counters: K9 one
-// for each column slice, `csr_kernels_layout`'s slice_cols columns wide,
-// K10 one; fewer is an invalid value), launches its kernel and, for rows of
+// the work order (K11: the `work` table, 16-byte aligned, in its place),
+// and `nctr` zeroed int counters: K9 one for each column
+// slice, `csr_kernels_layout`'s slice_cols columns wide, K10 one, K11 one
+// for each of its column slices, `slice` columns wide (the whole row, or
+// the layout's k11_slice); fewer, or none, is an invalid value; K11 also
+// the table's long segments, and reads each segment's edges from `work`,
+// not seg_edges), launches its kernel and, for rows of
 // several segments, the combine kernel, and returns the cudaError_t of the
 // launches. K10 also takes the
 // hub table (hub_rows, hub_slot; `hubs` its length, 0 for none, and then
@@ -819,12 +1086,14 @@ extern "C" int spgemm_cbsr_bf16(const void* indptr, const void* indices, const v
                                       static_cast<cudaStream_t>(stream));
 }
 
-// K9's column slice (columns) for features of `itemsize` bytes, and the
-// hub rows K10 holds in shared memory for k slots at dim columns (what a
-// launch with a long enough hub table keeps there).
-extern "C" int csr_kernels_layout(int itemsize, int k, int dim, int* slice_cols, int* k10_rows) {
+// K9's and K11's column slices (columns) for features of `itemsize` bytes,
+// and the hub rows K10 holds in shared memory for k slots at dim columns
+// (what a launch with a long enough hub table keeps there).
+extern "C" int csr_kernels_layout(int itemsize, int k, int dim, int* slice_cols, int* k10_rows,
+                                  int* k11_slice) {
   if ((itemsize != 2 && itemsize != 4) || k < 1 || dim < 1) return (int)cudaErrorInvalidValue;
   *slice_cols = kGroupLanes * kSliceVecs * 16 / itemsize;
+  *k11_slice = k11_slice_cols(itemsize);
   const int max_tile = kAccBytes / kK10Blocks / (kK10Warps * (int)sizeof(float));
   const int stride = ((dim < max_tile ? dim : max_tile) + 3) / 4 * 4;
   *k10_rows = (int)((kBlockSmem - (int64_t)kK10Warps * stride * 4 - 16) / ((int64_t)k * (2 + itemsize)));
@@ -834,21 +1103,27 @@ extern "C" int csr_kernels_layout(int itemsize, int k, int dim, int* slice_cols,
 extern "C" int sspmm_cbsr_f32(const void* indptr, const void* indices, const void* values,
                               const void* seg_row, const void* seg_begin, const void* seg_part,
                               const void* multi_row, const void* multi_part0, const void* multi_nseg,
-                              const void* g, const void* sel, void* out, void* part, int nseg,
-                              int nmulti, int seg_edges, int k, int dim, void* stream) {
-  const Csr a = csr_of(indptr, indices, values, seg_row, seg_begin, seg_part, multi_row,
-                       multi_part0, multi_nseg);
-  return launch_sspmm<float>(a, g, sel, out, part, nseg, nmulti, seg_edges, k, dim,
-                             static_cast<cudaStream_t>(stream));
+                              const void* work, const void* g, const void* sel, void* out,
+                              void* part, void* counters, int nseg, int nmulti, int seg_edges,
+                              int nctr, int long_segs, int k, int dim, int slice,
+                              void* stream) {
+  Csr a = csr_of(indptr, indices, values, seg_row, seg_begin, seg_part, multi_row, multi_part0,
+                 multi_nseg);
+  a.work = static_cast<const int4*>(work);
+  return launch_sspmm<float>(a, g, sel, out, part, counters, nseg, nmulti, nctr, long_segs, k,
+                             dim, slice, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int sspmm_cbsr_bf16(const void* indptr, const void* indices, const void* values,
                                const void* seg_row, const void* seg_begin, const void* seg_part,
                                const void* multi_row, const void* multi_part0, const void* multi_nseg,
-                               const void* g, const void* sel, void* out, void* part, int nseg,
-                               int nmulti, int seg_edges, int k, int dim, void* stream) {
-  const Csr a = csr_of(indptr, indices, values, seg_row, seg_begin, seg_part, multi_row,
-                       multi_part0, multi_nseg);
-  return launch_sspmm<__nv_bfloat16>(a, g, sel, out, part, nseg, nmulti, seg_edges, k, dim,
-                                     static_cast<cudaStream_t>(stream));
+                               const void* work, const void* g, const void* sel, void* out,
+                               void* part, void* counters, int nseg, int nmulti, int seg_edges,
+                               int nctr, int long_segs, int k, int dim, int slice,
+                               void* stream) {
+  Csr a = csr_of(indptr, indices, values, seg_row, seg_begin, seg_part, multi_row, multi_part0,
+                 multi_nseg);
+  a.work = static_cast<const int4*>(work);
+  return launch_sspmm<__nv_bfloat16>(a, g, sel, out, part, counters, nseg, nmulti, nctr,
+                                     long_segs, k, dim, slice, static_cast<cudaStream_t>(stream));
 }

@@ -54,9 +54,9 @@ SIGNATURES = {
     "spmm_csr_bf16": (_P,) * 14 + (_I,) * 5 + (_P,),
     "spgemm_cbsr_f32": (_P,) * 19 + (_I,) * 8 + (_P,),
     "spgemm_cbsr_bf16": (_P,) * 19 + (_I,) * 8 + (_P,),
-    "csr_kernels_layout": (_I, _I, _I) + (ctypes.POINTER(_I),) * 2,
-    "sspmm_cbsr_f32": (_P,) * 13 + (_I,) * 5 + (_P,),
-    "sspmm_cbsr_bf16": (_P,) * 13 + (_I,) * 5 + (_P,),
+    "csr_kernels_layout": (_I, _I, _I) + (ctypes.POINTER(_I),) * 3,
+    "sspmm_cbsr_f32": (_P,) * 15 + (_I,) * 8 + (_P,),
+    "sspmm_cbsr_bf16": (_P,) * 15 + (_I,) * 8 + (_P,),
 }
 
 _lib = None

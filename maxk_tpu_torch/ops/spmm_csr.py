@@ -27,11 +27,13 @@ one the graph carries, else one built for the call): segments of at most
 adds the f32 partial sums of a row of several segments in segment order.
 So every launch gives the same bits, and a row of one segment the plain
 version's bits on the CPU; a longer row differs from it by the f32 sum's
-grouping. K9 and K10 run on a persistent grid that takes the segments in
+grouping. All three run on a persistent grid that takes the segments in
 the table's work order from zeroed counters their wrappers hand them (K9
-one a column slice, K10 one); K10 keeps the merged rows of the table's hub
-columns in shared memory (none where the table has no hub table). K10's
-merged selectors are int16: it takes dim < 32768 and raises above.
+and K11 one a column slice of the features, K10 one); K10 keeps the
+merged rows of the table's hub columns in shared memory (none where the
+table has no hub table), K11 gives a segment a lane group sized to k.
+K10's merged selectors are int16: it takes dim < 32768 and raises
+above.
 The CSR's column indices must lie inside the features' rows: they are not
 checked.
 
@@ -88,15 +90,17 @@ def _segments(name: str, csr: CSRGraph, t: torch.Tensor) -> RowSegments:
 
 
 def _launch(name: str, entry: str, csr: CSRGraph, segs: RowSegments, t: torch.Tensor,
-            tensors, width: int, *ints, counters: int = 0, hubs: bool = False) -> None:
+            tensors, width: int, *ints, counters: int = 0, hubs: bool = False,
+            work: bool = False) -> None:
     """Launch `entry` on the CSR, its segment table (with its work order
-    where `counters`, and its hub table where `hubs`), `tensors` (data
-    pointers), an f32 partial buffer of `width` columns for the rows of
-    several segments and `counters` zeroed work counters, then the table's
-    sizes (and the counters' count, the hub table's length) and `ints`."""
+    where `counters`, as the `work` table where `work`, and its hub table
+    where `hubs`), `tensors` (data pointers), an f32 partial buffer of
+    `width` columns for the rows of several segments and `counters` zeroed
+    work counters, then the table's sizes (and the counters' count, the hub
+    table's length) and `ints`."""
     arrays = [csr.indptr, csr.indices, csr.values, segs.row, segs.begin, segs.part,
               segs.multi_row, segs.multi_part0, segs.multi_nseg]
-    arrays += [segs.order] if counters else []
+    arrays += [segs.work if work else segs.order] if counters else []
     arrays += [segs.hub_rows, segs.hub_slot] if hubs else []
     part = torch.empty((segs.num_parts, width), dtype=torch.float32, device=t.device)
     work = [torch.zeros(counters, dtype=torch.int32, device=t.device)] if counters else []
@@ -107,21 +111,48 @@ def _launch(name: str, entry: str, csr: CSRGraph, segs: RowSegments, t: torch.Te
 
 
 def kernel_layout(itemsize: int, k: int, dim: int) -> dict:
-    """K9's column slice and the hub rows K10 holds in shared memory
-    (`csr_kernels_layout` in the kernels' source), for features of
-    `itemsize` bytes, k CBSR slots and dim columns."""
+    """K9's column slice, the hub rows K10 holds in shared memory and K11's
+    column slice (`csr_kernels_layout` in the kernels' source), for
+    features of `itemsize` bytes, k CBSR slots and dim columns."""
     import ctypes
 
-    out = [ctypes.c_int(0) for _ in range(2)]
+    out = [ctypes.c_int(0) for _ in range(3)]
     err = _native.library().csr_kernels_layout(itemsize, k, dim, *map(ctypes.byref, out))
     if err != 0:
         raise ValueError(f"csr_kernels_layout({itemsize}, {k}, {dim}): CUDA error {err}")
-    return dict(zip(("slice_cols", "k10_cache_rows"), (o.value for o in out)))
+    return dict(zip(("slice_cols", "k10_cache_rows", "k11_slice_cols"), (o.value for o in out)))
 
 
 @functools.lru_cache(maxsize=None)
 def _slice_cols(itemsize: int) -> int:
     return kernel_layout(itemsize, 1, 1)["slice_cols"]
+
+
+@functools.lru_cache(maxsize=None)
+def _k11_slice_cols(itemsize: int) -> int:
+    return kernel_layout(itemsize, 1, 1)["k11_slice_cols"]
+
+
+# K11 walks g in column slices (`kernel_layout`'s k11_slice_cols, 512 bytes
+# a row) where each of g's rows is gathered K11_SLICE_MIN_DEGREE times or
+# more on average (E/V) and a row's k selectors touch it sparsely
+# (k <= K11_SLICE_MAX_K): then a slice's rows stay in L2 between their
+# gathers, where whole rows would not (bench/ablate_csr.py on the H100, f32,
+# reddit x1.0 (E/V 339), k = 32: 6.84 ms sliced, 8.14 whole; R-MAT with
+# E/V 120: 10% faster sliced, E/V 45: even). Where rows are gathered seldom
+# L2 cannot help, and the walk a slice costs more (R-MAT, E/V 6-15: 1.2-1.8x
+# slower sliced); at k = 64 the selectors touch most of a row (even at
+# reddit, slower on the R-MAT graphs).
+K11_SLICE_MIN_DEGREE = 64
+K11_SLICE_MAX_K = 32
+
+
+def k11_slice(itemsize: int, k: int, dim: int, nodes: int, edges: int) -> int:
+    """The columns of g a K11 walk of the edges covers: a slice, or all of
+    them (see `K11_SLICE_MIN_DEGREE`)."""
+    if k > K11_SLICE_MAX_K or edges < K11_SLICE_MIN_DEGREE * max(nodes, 1):
+        return dim
+    return min(dim, _k11_slice_cols(itemsize))
 
 
 def _suffix(t: torch.Tensor) -> str:
@@ -184,8 +215,10 @@ def sspmm_cbsr_cuda(csc: CSRGraph, g: torch.Tensor, sel: torch.Tensor) -> torch.
     out = g.new_empty((rows, k))
     if rows == 0 or k == 0:
         return out
-    _launch("sspmm_cbsr", f"sspmm_cbsr_{_suffix(g)}", csc, segs, g, (g, sel, out), k, k,
-            g.shape[1])
+    d = g.shape[1]
+    cols = k11_slice(g.element_size(), k, d, csc.num_nodes, csc.nnz)
+    _launch("sspmm_cbsr", f"sspmm_cbsr_{_suffix(g)}", csc, segs, g, (g, sel, out), k,
+            segs.long_segments, k, d, cols, counters=-(-d // cols), work=True)
     sspmm_cbsr_cuda.launches += 1
     return out
 

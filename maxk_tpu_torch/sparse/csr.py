@@ -37,6 +37,11 @@ SEG_EDGES = 256
 # at D = 256, 254 / 381 rows of k = 32 slots in f32 / bf16, 1,018 / 1,527 of
 # k = 8), so the table holds what the narrowest rows the model runs fill
 HUB_ROWS = 1536
+# segments this long or longer count as long (`RowSegments.long_segments`):
+# K11 hands them out from a counter, since an atomic costs little beside a
+# walk of 128 edges, and the shorter ones in turn, since there a queued
+# atomic costs as much as the walk
+LONG_EDGES = 128
 
 
 @dataclass(frozen=True)
@@ -53,6 +58,11 @@ class RowSegments:
     num_parts:  the partial rows, the sum of multi_nseg
     order:      (S,) int32 the segments by length, longest first (ties in
                 table order): the kernels' work order
+    work:       (S, 4) int32 the segments in work order, each as (row,
+                first edge, edges, part): K11's table, a 16-byte load a
+                segment in place of a chain of loads through `order`
+    long_segments: the segments of at least LONG_EDGES edges, the first
+                of the work order
     hub_rows:   (H,) int32 the H most-referenced columns, most first (ties
                 to the lower column); H = 0 where the table was built
                 without it
@@ -69,8 +79,10 @@ class RowSegments:
     num_parts: int
     seg_edges: int
     order: torch.Tensor
+    work: torch.Tensor
     hub_rows: torch.Tensor
     hub_slot: torch.Tensor
+    long_segments: int = 0
 
     @property
     def num_segments(self) -> int:
@@ -79,8 +91,9 @@ class RowSegments:
     def to(self, device) -> "RowSegments":
         moved = {f: getattr(self, f).to(device) for f in
                  ("row", "begin", "part", "multi_row", "multi_part0", "multi_nseg", "order",
-                  "hub_rows", "hub_slot")}
-        return RowSegments(num_parts=self.num_parts, seg_edges=self.seg_edges, **moved)
+                  "work", "hub_rows", "hub_slot")}
+        return RowSegments(num_parts=self.num_parts, seg_edges=self.seg_edges,
+                           long_segments=self.long_segments, **moved)
 
 
 @dataclass(frozen=True)
@@ -169,18 +182,22 @@ def row_segments(g: CSRGraph, seg_edges: int = SEG_EDGES, hubs: bool = False) ->
         hub_rows, hub_slot = hub_table(g.indices[: int(indptr[-1])])
     else:
         hub_rows = hub_slot = torch.empty(0, dtype=torch.int32, device=dev)
+    part = torch.where(multi[row], part0[row] + local, -1)
+    order = torch.sort(length, descending=True, stable=True).indices
     return RowSegments(
         row=row.int(),
         begin=begin.int(),
-        part=torch.where(multi[row], part0[row] + local, -1).int(),
+        part=part.int(),
         multi_row=multi_row.int(),
         multi_part0=part0[multi_row].int(),
         multi_nseg=nseg[multi_row].int(),
         num_parts=int(mseg.sum()),
         seg_edges=seg_edges,
-        order=torch.sort(length, descending=True, stable=True).indices.int(),
+        order=order.int(),
+        work=torch.stack([row, begin, length, part], 1)[order].int().contiguous(),
         hub_rows=hub_rows,
         hub_slot=hub_slot,
+        long_segments=int((length >= LONG_EDGES).sum()),
     )
 
 

@@ -200,7 +200,7 @@ def test_entry_points_default_to_the_card(entry):
         main([])
 
 
-@pytest.mark.parametrize("edits", ["K9_EDITS", "K10_EDITS"])
+@pytest.mark.parametrize("edits", ["K9_EDITS", "K10_EDITS", "K11_EDITS"])
 def test_ablate_csr_edits_apply_to_the_kernel_source(edits):
     """Every text edit of the CSR kernels' probe names text that stands in
     `csrc/spmm_csr.cu` and changes it (a rewrite that drops a line makes
@@ -211,6 +211,54 @@ def test_ablate_csr_edits_apply_to_the_kernel_source(edits):
     for name, pairs in getattr(ablate_csr, edits).items():
         out = ablate_csr.edited("test", name, src, pairs)
         assert (out != src) == bool(pairs), name
+
+
+def test_ablate_csr_sector_count_matches_numpy():
+    """K11's gathered bytes (`ablate_csr.sector_bytes`): over the rows j of
+    Aᵀ, live edges × 32 × the distinct 32-byte sectors that sel[j]'s
+    selectors in [0, D) fall in, held against a count row by row in numpy
+    on a small graph with repeated and out-of-range selectors, for 4- and
+    2-byte elements."""
+    from maxk_tpu_torch.data.synthetic import rmat_graph
+    from maxk_tpu_torch.sparse.graph import build_graph
+
+    csc = build_graph(rmat_graph(300, 3000, seed=2)).csc
+    d, k = 100, 12
+    rng = np.random.default_rng(4)
+    sel = rng.integers(-3, d + 3, (csc.num_nodes, k)).astype(np.int32)
+    sel[:, 1] = sel[:, 0]
+    deg = np.diff(csc.indptr.numpy())
+    assert deg.min() >= 1 and deg.max() > 1
+    for isz in (4, 2):
+        want = 32 * sum(int(deg[j]) * len({int(c) * isz // 32 for c in sel[j] if 0 <= c < d})
+                        for j in range(csc.num_nodes))
+        assert ablate_csr.sector_bytes(csc, torch.from_numpy(sel), d, isz) == want
+
+
+def test_ablate_csr_bound_counts_the_function_bytes():
+    """The CSR kernels' bounds count what the function reads of the CSR:
+    row pointers and the live edges' columns and weights, none of the
+    segment, work or hub tables."""
+    from maxk_tpu_torch.data.synthetic import rmat_graph
+    from maxk_tpu_torch.sparse.graph import build_graph
+
+    graph = build_graph(rmat_graph(300, 3000, seed=2))
+    for csr in (graph.csr, graph.csc):
+        live = int(csr.indptr[-1])
+        assert ablate_csr.csr_bytes(csr) == 4 * (csr.num_nodes + 1) + 8 * live
+
+
+def test_line_times_prefixes_each_line():
+    """`line_times` prints each line of the command's output after the
+    seconds since its start and a tab, in order, and exits with its code."""
+    cmd = [sys.executable, str(REPO / "maxk_tpu_torch/bench/line_times.py"), "--",
+           sys.executable, "-c", "import sys; print('a'); print('b c'); sys.exit(3)"]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    assert run.returncode == 3
+    lines = [line.split("\t") for line in run.stdout.splitlines()]
+    assert [text for _, text in lines] == ["a", "b c"]
+    secs = [float(s) for s, _ in lines]
+    assert 0 <= secs[0] <= secs[1]
 
 
 def test_probe_bricks_tiles_arm_on_cpu():

@@ -652,10 +652,12 @@ def test_gather_wrappers_count_and_raise(cuda):
 # the segsum path's CSR kernels: K9-K11 (ops/spmm_csr.py)
 
 
-def _csr_graph(v=3000, e=60_000, seed=0):
+def _csr_graph(v=3000, e=60_000, seed=0, lone=False):
     """A directed graph with random weights, on the CPU: rows 0 and 1 of A
     hubs of several segments, rows 10-29 empty, column 2 in every row (a hub
-    row of Aᵀ), columns past v - 20 in no row (empty rows of Aᵀ)."""
+    row of Aᵀ), columns past v - 20 in no row (empty rows of Aᵀ); with
+    `lone`, columns v - 40 .. v - 21 in one row each (rows of one edge in
+    Aᵀ)."""
     import numpy as np
 
     from maxk_tpu_torch.sparse.csr import csr_from_coo
@@ -664,8 +666,11 @@ def _csr_graph(v=3000, e=60_000, seed=0):
     rows = np.concatenate([rng.integers(0, v, e), np.zeros(5000, np.int64),
                            np.ones(700, np.int64), np.arange(v)])
     cols = np.concatenate([rng.integers(0, v, e), rng.integers(0, v, 5700), np.full(v, 2)])
-    keep = ((rows < 10) | (rows >= 30)) & (cols < v - 20)
+    keep = ((rows < 10) | (rows >= 30)) & (cols < v - (40 if lone else 20))
     rows, cols = rows[keep], cols[keep]
+    if lone:
+        rows = np.concatenate([rows, rng.integers(30, v, 20)])
+        cols = np.concatenate([cols, np.arange(v - 40, v - 20)])
     vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
     return build_graph(csr_from_coo(rows, cols, v, vals, dedup=False))
 
@@ -878,14 +883,31 @@ def test_spgemm_cbsr_kernel(cuda, k, d, dtype, hubs, v):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,d", [(32, 256), (7, 50), (40, 256), (1, 1)])
-def test_sspmm_cbsr_kernel(cuda, k, d, dtype):
-    """K11 over Aᵀ against `sample_plain(spmm_segsum(Aᵀ, g), sel)` on the CPU:
-    a selector outside [0, D) gives 0; k = 40 takes two slot passes."""
+@pytest.mark.parametrize("k,d", [(32, 256), (7, 50), (40, 256), (1, 1), (8, 256), (16, 256),
+                                 (64, 256), (96, 300), (160, 256)])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_sspmm_cbsr_kernel(cuda, k, d, dtype, sliced, monkeypatch):
+    """K11 over Aᵀ against `sample_plain(spmm_segsum(Aᵀ, g), sel)` on the CPU,
+    in each lane layout: a segment to 8 lanes (k = 1, 7, 8), to 16 (k = 16),
+    to the warp (k = 32), 2 and 4 slots a lane (k = 40, 64, 96; their
+    segments of 16 edges or more ordered by selector, repeated and
+    out-of-range selectors among them) and past 128 slots a second walk of
+    the edges (k = 160); g walked over whole rows, and in column slices
+    (`sliced`: the rule set to slice at any degree and k). Aᵀ has a row of
+    many segments, empty rows, rows of one edge and rows of odd edge counts
+    (the bf16 pairs' tail); a selector outside [0, D) gives 0; two launches
+    give the same bits."""
     from maxk_tpu_torch.ops import spmm_csr as sc
 
-    g = _csr_graph(seed=3)
+    if sliced:
+        monkeypatch.setattr(sc, "K11_SLICE_MIN_DEGREE", 0)
+        monkeypatch.setattr(sc, "K11_SLICE_MAX_K", 1 << 30)
+
+    g = _csr_graph(seed=3, lone=True)
     v = g.num_nodes
+    deg = torch.diff(g.csc.indptr.long())
+    assert bool((deg == 0).any()) and bool((deg == 1).any()) and int(deg.max()) > 4 * 256
+    assert bool((deg % 2 == 1).any())
     _, sel = _selectors(v, k, d, k * d)
     ct = torch.randn((v, d), generator=torch.Generator().manual_seed(k)).to(dtype)
     gc = g.csc.to(cuda)
@@ -899,6 +921,150 @@ def test_sspmm_cbsr_kernel(cuda, k, d, dtype):
     _check_segments(out, ref, g.csc, abs_ref, dtype)
     bad = (sel < 0) | (sel >= d)
     assert not _bits(out.cpu()[bad]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 32, 64])
+def test_sspmm_cbsr_kernel_bf16_pairs_round_once(cuda, k):
+    """K11 in bf16 on rows of Aᵀ of 0-3 edges, weights and g spread over
+    bf16's exponent range so that products are normal, subnormal and zero:
+    T(+0.0 + p0 + p1 + ...) with each p = T(g · T(a)) summed in f32 in edge
+    order, bit for bit, so a pair's `__hmul2_rn` and an odd row's lone last
+    edge round as one conversion each does."""
+    import numpy as np
+
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.sparse.csr import CSRGraph, with_segments
+
+    v, d = 4096, 64
+    rng = np.random.default_rng(k)
+    deg = np.arange(v) % 4
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    cols = rng.integers(0, v, int(indptr[-1])).astype(np.int32)
+    a = (rng.choice([-1.0, 1.0], cols.shape[0])
+         * 2.0 ** rng.uniform(-70, 10, cols.shape[0])).astype(np.float32)
+    g = torch.from_numpy(rng.choice([-1.0, 1.0], (v, d)) * 2.0 ** rng.uniform(-80, 5, (v, d)))
+    g = g.float().to(torch.bfloat16)
+    sel = torch.from_numpy(np.stack([rng.permutation(d)[:k] for _ in range(v)]).astype(np.int32))
+    csc = with_segments(CSRGraph(torch.from_numpy(indptr), torch.from_numpy(cols),
+                                 torch.from_numpy(a)))
+    out = sc.sspmm_cbsr_cuda(csc.to(cuda), g.to(cuda), sel.to(cuda)).cpu()
+    ab = torch.from_numpy(a).to(torch.bfloat16).float()
+    prod = (g[torch.from_numpy(cols).long()].float()
+            * ab[:, None]).to(torch.bfloat16).float()  # (E, d)
+    tiny = prod.abs() < torch.finfo(torch.bfloat16).tiny
+    assert bool((tiny & (prod != 0)).any()) and bool((tiny & (prod == 0)).any())
+    acc = torch.zeros((v, d))
+    for i in range(3):  # the i-th edge of each row, in edge order
+        rows = torch.from_numpy(np.nonzero(deg > i)[0])
+        acc[rows] = acc[rows] + prod[torch.from_numpy(indptr[:-1]).long()[rows] + i]
+    ref = torch.gather(acc, 1, sel.long()).to(torch.bfloat16)
+    assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.cuda
+def test_sspmm_cbsr_takes_the_work_table_and_zeroed_counters(cuda, monkeypatch):
+    """The wrapper hands K11 the table's `work` table and one zeroed int32
+    counter a column slice of g (`csr_kernels_layout`'s k11_slice_cols, the
+    rule set to slice); the C entry refuses a null counter or fewer
+    counters than slices (an invalid value, nothing launched)."""
+    from maxk_tpu_torch.ops import _native
+    from maxk_tpu_torch.ops import spmm_csr as sc
+
+    gt = _csr_graph(v=200, e=2000, seed=6).csc.to(cuda)
+    d = 256
+    g = torch.randn((200, d), device=cuda)
+    sel = torch.randint(0, d, (200, 32), dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(sc, "K11_SLICE_MIN_DEGREE", 0)  # a walk in slices
+    slices = -(-d // sc.kernel_layout(4, 32, d)["k11_slice_cols"])
+    assert slices > 1 and sc.k11_slice(4, 32, d, 200, gt.nnz) < d
+    made, seen = [], {}
+    real_zeros, real_launch = torch.zeros, _native.launch
+
+    def zeros(*a, **kw):
+        made.append(real_zeros(*a, **kw))
+        return made[-1]
+
+    def launch(name, entry, t, *args):
+        seen["entry"], seen["args"] = entry, args
+        seen["counters"] = [z.clone() for z in made if z.data_ptr() == args[14]]
+        return real_launch(name, entry, t, *args)
+
+    monkeypatch.setattr(torch, "zeros", zeros)
+    monkeypatch.setattr(_native, "launch", launch)
+    ref = sc.sspmm_cbsr_cuda(gt, g, sel)
+    monkeypatch.setattr(torch, "zeros", real_zeros)
+    monkeypatch.setattr(_native, "launch", real_launch)
+    args = seen["args"]
+    assert seen["entry"] == "sspmm_cbsr_f32"
+    assert args[9] == gt.segments.work.data_ptr()
+    (ctr,) = seen["counters"]
+    assert ctr.dtype == torch.int32 and ctr.numel() == slices and int(ctr.abs().sum()) == 0
+    assert args[15 + 3] == slices  # nseg, nmulti, seg_edges, then the counters' count
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    fn = _native._fns["sspmm_cbsr_f32"]
+    assert fn(*args[:14], None, *args[15:], stream) != 0
+    assert fn(*args[:18], slices - 1, *args[19:], stream) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(sc.sspmm_cbsr_cuda(gt, g, sel)), _bits(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 16, 32, 64])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_sspmm_cbsr_many_long_units(cuda, k, dtype, sliced, monkeypatch):
+    """K11 where the long segments (`LONG_EDGES` or more edges) fill more
+    units than a persistent grid has warps in any layout (at most 6 blocks
+    of 8 warps an SM): walked in slices, its warps take them from the
+    slice's counter; over whole rows, a warp each. 28,000 rows of Aᵀ of
+    129-131 edges, rows of 600 (three segments), of one edge and empty
+    ones. Rows of one
+    segment equal the sum of their products in edge order from +0.0 on the
+    CPU bit for bit, the others within the regrouping; two launches give the
+    same bits."""
+    import numpy as np
+
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.sparse.csr import CSRGraph, with_segments
+
+    monkeypatch.setattr(sc, "K11_SLICE_MIN_DEGREE", 0 if sliced else 1 << 30)
+    monkeypatch.setattr(sc, "K11_SLICE_MAX_K", 1 << 30 if sliced else 0)
+    v, d, n_long = 28_672, 300, 28_000
+    rng = np.random.default_rng(k)
+    deg = np.zeros(v, np.int64)
+    deg[:n_long] = 129 + np.arange(n_long) % 3
+    deg[n_long:n_long + 16] = 600
+    deg[n_long + 16:n_long + 32] = 1
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    cols = rng.integers(0, v, int(indptr[-1])).astype(np.int32)
+    a = rng.standard_normal(cols.shape[0]).astype(np.float32)
+    csc = with_segments(CSRGraph(torch.from_numpy(indptr), torch.from_numpy(cols),
+                                 torch.from_numpy(a)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    segs_a_unit = 32 // (8 if k <= 8 else 16 if k <= 16 else 32)
+    assert csc.segments.long_segments // segs_a_unit >= sms * 6 * 8
+    g = torch.randn((v, d), generator=torch.Generator().manual_seed(k)).to(dtype)
+    _, sel = _selectors(v, k, d, k + 1)
+    gc = csc.to(cuda)
+    out = sc.sspmm_cbsr_cuda(gc, g.to(cuda), sel.to(cuda))
+    again = sc.sspmm_cbsr_cuda(gc, g.to(cuda), sel.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(again))
+    # the f32 sum of T(g · T(a)) over each row's edges in edge order
+    ab = torch.from_numpy(a).to(dtype).float()
+    gf, sl = g.float(), sel.long()
+    ok = (sl >= 0) & (sl < d)
+    acc, abs_acc = torch.zeros((v, k)), torch.zeros((v, k), dtype=torch.float64)
+    starts, tc = torch.from_numpy(indptr[:-1]).long(), torch.from_numpy(cols).long()
+    for i in range(int(deg.max())):
+        rows = torch.from_numpy(np.nonzero(deg > i)[0])
+        e = starts[rows] + i
+        x = gf[tc[e][:, None], sl[rows].clamp(0, d - 1)]
+        p = torch.where(ok[rows], (x * ab[e][:, None]).to(dtype).float(), 0.0)
+        acc[rows] = acc[rows] + p
+        abs_acc[rows] = abs_acc[rows] + p.double().abs()
+    _check_segments(out, acc.to(dtype), csc, abs_acc, dtype)
 
 
 @pytest.mark.cuda

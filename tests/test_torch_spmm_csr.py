@@ -32,7 +32,7 @@ from maxk_tpu_torch.ops import spgemm as tsp
 from maxk_tpu_torch.ops import spmm_csr as sc
 from maxk_tpu_torch.parallel.shard import build_sharded_graph
 from maxk_tpu_torch.sparse.cbsr import CBSR
-from maxk_tpu_torch.sparse.csr import (HUB_ROWS, SEG_EDGES, csr_from_coo, hub_table,
+from maxk_tpu_torch.sparse.csr import (HUB_ROWS, LONG_EDGES, SEG_EDGES, csr_from_coo, hub_table,
                                        row_segments)
 from maxk_tpu_torch.sparse.graph import build_graph
 
@@ -358,6 +358,26 @@ def test_work_order_puts_long_segments_first(graphs, seg_edges):
     assert bool((order[1:][same] > order[:-1][same]).all())
 
 
+@pytest.mark.parametrize("seg_edges", [3, SEG_EDGES])
+def test_work_table_is_the_segments_in_work_order(graphs, seg_edges):
+    """work: each segment in work order as (row, first edge, edges, part),
+    a contiguous (S, 4) int32 table."""
+    _, tg = graphs
+    t = row_segments(tg.csr, seg_edges)
+    indptr = tg.csr.indptr.long()
+    begin = t.begin.long()
+    length = torch.minimum(begin + seg_edges, indptr[t.row.long() + 1]) - begin
+    o = t.order.long()
+    assert t.work.dtype == torch.int32 and t.work.shape == (t.num_segments, 4)
+    assert t.work.is_contiguous()
+    want = torch.stack([t.row.long()[o], begin[o], length[o], t.part.long()[o]], 1)
+    assert torch.equal(t.work.long(), want)
+    # the long segments lead the work order
+    long = length[o] >= LONG_EDGES
+    assert t.long_segments == int(long.sum()) and bool(long[: t.long_segments].all())
+    assert (t.long_segments > 0) == (seg_edges >= LONG_EDGES)
+
+
 def test_moved_table_equals_the_table_of_the_moved_csr(graphs):
     """The table moved with its CSR (`CSRGraph.to`) equals the one built on
     the moved CSR, field by field."""
@@ -365,9 +385,10 @@ def test_moved_table_equals_the_table_of_the_moved_csr(graphs):
     moved = tg.csr.to("cpu")
     built = row_segments(moved, hubs=True)
     for f in ("row", "begin", "part", "multi_row", "multi_part0", "multi_nseg", "order",
-              "hub_rows", "hub_slot"):
+              "work", "hub_rows", "hub_slot"):
         assert torch.equal(getattr(moved.segments, f), getattr(built, f)), f
     assert moved.segments.num_parts == built.num_parts
+    assert moved.segments.long_segments == built.long_segments
 
 
 def test_sharded_blocks_carry_hub_tables_over_the_gathered_columns():
@@ -388,3 +409,18 @@ def test_wrappers_refuse_other_devices(graphs):
     x = torch.zeros((V, D), device="meta")
     with pytest.raises(ValueError, match="no implementation for device meta"):
         sc.spmm_csr(tg.csr, x)
+
+
+def test_k11_slice_rule(monkeypatch):
+    """K11 walks g in column slices only where rows are gathered often
+    (E/V >= K11_SLICE_MIN_DEGREE) and touched sparsely (k <= K11_SLICE_MAX_K),
+    else over whole rows; a slice never exceeds the row."""
+    monkeypatch.setattr(sc, "_k11_slice_cols", lambda itemsize: 512 // itemsize)
+    v, deg = 1000, sc.K11_SLICE_MIN_DEGREE
+    assert sc.k11_slice(4, 32, 256, v, deg * v) == 128
+    assert sc.k11_slice(2, 16, 512, v, deg * v) == 256
+    assert sc.k11_slice(2, 32, 256, v, deg * v) == 256
+    assert sc.k11_slice(4, 32, 100, v, deg * v) == 100
+    assert sc.k11_slice(4, 32, 256, v, deg * v - 1) == 256
+    assert sc.k11_slice(4, sc.K11_SLICE_MAX_K + 1, 256, v, deg * v) == 256
+    assert sc.k11_slice(4, 8, 256, 0, 0) == 256
