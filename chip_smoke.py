@@ -97,6 +97,22 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def reset_launches(names) -> None:
+    """Set the launch counts of the wrappers `names` to 0
+    (`telemetry.launches`, counted by `ops/_native.launch`)."""
+    from maxk_tpu_torch import telemetry
+
+    for name in names:
+        telemetry.launches[name] = 0
+
+
+def read_launches(names) -> dict:
+    """The launch count of each wrapper of `names`."""
+    from maxk_tpu_torch import telemetry
+
+    return {name: telemetry.launches[name] for name in names}
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of `fn()` in ms over `iters` runs after one warm-up
     run: `micro.timeit`, by CUDA events."""
@@ -884,7 +900,7 @@ def phase_small_slice():
     require(rel <= 1e-3, f"small slice: CUDA and CPU losses differ by {rel}")
 
 
-def phase_sharded_small(wrappers: dict) -> dict:
+def phase_sharded_small(names) -> dict:
     """3 steps at the small size for SAGE, GCN and GIN: the single-device
     path on the CPU (plain versions) and on the card, and the sharded path
     at world size 1 on the card (K4, NCCL collectives, maxk_spgemm), from
@@ -916,8 +932,7 @@ def phase_sharded_small(wrappers: dict) -> dict:
                                   kernel_mode="segsum", device=device)
                 losses[device] = train(cfg, d, warmup_epochs=3).losses
             if d is proteins:
-                for fn in wrappers.values():
-                    fn.launches = 0
+                reset_launches(names)
             state = train_sharded(cfg, d, mesh, warmup_epochs=3)
             losses["sharded_cuda"] = state.losses
             # as in phase_small_slice: a top-k near-tie that the summation
@@ -933,7 +948,7 @@ def phase_sharded_small(wrappers: dict) -> dict:
                     logits = state.model(state.graph, state.feats, train=False)
                 sharded = gathered_rocauc(logits, state.labels, state.masks, mesh)
                 single = [rocauc(logits, state.labels, m) for m in state.masks]
-                launches = {name: fn.launches for name, fn in wrappers.items()}
+                launches = read_launches(names)
                 extra = dict(sharded_rocauc=[float(x) for x in sharded],
                              single_rocauc=[float(x) for x in single], launches=launches)
                 require(all(torch.equal(a, b) for a, b in zip(sharded, single)),
@@ -1632,7 +1647,7 @@ def phase_lookahead_ckpt():
             f"--evaluate best/: val {va} against the logged best {whole.best_val}")
 
 
-def sharded_train_rank(mesh, wrappers: dict, data=None) -> dict:
+def sharded_train_rank(mesh, names, data=None) -> dict:
     """One rank of the full-width sharded run: counts reset to 0, train
     SHARDED_EPOCHS epochs, counts read. `data` None: load it (a spawned
     rank); rank 0's summary is the phase's."""
@@ -1648,19 +1663,18 @@ def sharded_train_rank(mesh, wrappers: dict, data=None) -> dict:
                       hidden_dim=DIM, hidden_layers=LAYERS, maxk=K, dropout=0.5,
                       device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(names)
     t0 = time.perf_counter()
     state = train_sharded(cfg, data, mesh, warmup_epochs=1)
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches(names)
     return {"losses": state.losses, "step_ms": [1e3 * t for t in state.epoch_times],
             "launches": launches, "collective_bytes_per_step": state.step_bytes,
             "shard_nodes": state.graph.shard_nodes, "shard_edges": state.graph.nnz,
             "wall_s": wall, "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
-def phase_sharded_train(data, wrappers: dict) -> dict:
+def phase_sharded_train(data, names) -> dict:
     """MaxK-SAGE 4×256, k=32, dropout 0.5, lr 0.01 on reddit ×1.0 through the
     row-partitioned path, one rank per card. The process group is stopped
     before the phase returns."""
@@ -1672,11 +1686,11 @@ def phase_sharded_train(data, wrappers: dict) -> dict:
     if n == 1:
         mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
         try:
-            out = sharded_train_rank(mesh, wrappers, data)
+            out = sharded_train_rank(mesh, names, data)
         finally:
             destroy_mesh(mesh)
     else:  # each rank generates the data from its seed
-        out = run_ranks(sharded_train_rank, n, (wrappers,), device_type="cuda")[0]
+        out = run_ranks(sharded_train_rank, n, (names,), device_type="cuda")[0]
     losses, launches = out["losses"], out["launches"]
     emit("sharded_train", world_size=n, nodes=data.csr.num_nodes, edges=data.csr.nnz,
          layers=LAYERS, hidden=DIM, k=K, dropout=0.5, lr=0.01, epochs=SHARDED_EPOCHS,
@@ -1722,21 +1736,21 @@ def phase_gnn_res(data):
     require(moved, "gnn_res: BatchNorm running statistics did not move")
 
 
-def phase_golden(k1) -> None:
+def phase_golden() -> None:
     """Every golden row (`train.golden.GOLDEN`, the published widths) through
     `run_golden(gc, device="cuda")`: best validation value at or above its
-    floor, and the MaxK mask kernel `k1` launched on every MaxK row. A row
+    floor, and the MaxK mask kernel K1 launched on every MaxK row. A row
     of `golden.KNOWN_MISSES` (each a ROADMAP C entry) may stay under its
     floor; it is printed as such."""
     from maxk_tpu_torch.train.golden import GOLDEN, KNOWN_MISSES, row_id, run_golden
 
     missed = []
     for gc in GOLDEN:
-        before = k1.launches
+        before = read_launches(["maxk_mask"])["maxk_mask"]
         t0 = time.perf_counter()
         best_val, best_test = run_golden(gc, device="cuda")
         row = row_id(gc)
-        launches = k1.launches - before
+        launches = read_launches(["maxk_mask"])["maxk_mask"] - before
         ok = best_val >= gc.min_val
         emit("golden", row=row, best_val=best_val, best_test=best_test, min_val=gc.min_val,
              ok=ok, known_miss=row in KNOWN_MISSES, seconds=time.perf_counter() - t0,
@@ -1749,7 +1763,7 @@ def phase_golden(k1) -> None:
     require(not missed, f"golden rows under their floors: {missed}")
 
 
-def phase_proteins(k1) -> None:
+def phase_proteins() -> None:
     """ogbn-proteins ×1.0 (DC-SBM, p_intra 0.8, snr 0.15, seed 123) with the
     published launch (MaxK-SAGE 3×256, k=32, dropout 0.5, lr 0.01, ROC-AUC
     eval) for PROTEINS_EPOCHS epochs on one card."""
@@ -1766,11 +1780,11 @@ def phase_proteins(k1) -> None:
     cfg = TrainConfig(dataset="ogbn-proteins", model="sage", epochs=PROTEINS_EPOCHS, lr=0.01,
                       hidden_dim=DIM, hidden_layers=3, maxk=K, dropout=0.5, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    before = k1.launches
+    before = read_launches(["maxk_mask"])["maxk_mask"]
     t0 = time.perf_counter()
     state = train(cfg, data, warmup_epochs=1)
     wall = time.perf_counter() - t0
-    launches = k1.launches - before
+    launches = read_launches(["maxk_mask"])["maxk_mask"] - before
     synchronize(state.device)
     t1 = time.perf_counter()
     rocaucs = evaluate(state, data)
@@ -1810,43 +1824,40 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from maxk_tpu_torch.ops import cbsr_cuda, gather_cuda, spmm_bricks, spmm_csr, topk_cuda
-
-    # name: (wrapper, source, the TPU kernel it replaces (K9-K11: the
+    # name: (source, the TPU kernel it replaces (K9-K11: the
     # reference's XLA function), the check whose numbers the kernels line
     # reports)
     wrappers = {
-        "maxk_mask": (topk_cuda.maxk_mask_cuda, "maxk_tpu_torch/csrc/maxk_mask.cu",
+        "maxk_mask": ("maxk_tpu_torch/csrc/maxk_mask.cu",
                       "maxk_tpu/ops/topk_pallas.py:99", "float32"),
-        "topk_cbsr": (topk_cuda.topk_cbsr_cuda, "maxk_tpu_torch/csrc/topk_cbsr.cu",
+        "topk_cbsr": ("maxk_tpu_torch/csrc/topk_cbsr.cu",
                       "maxk_tpu/ops/topk_pallas.py:79", "float32"),
-        "cbsr_densify": (cbsr_cuda.densify_cuda, "maxk_tpu_torch/csrc/cbsr.cu",
+        "cbsr_densify": ("maxk_tpu_torch/csrc/cbsr.cu",
                          "maxk_tpu/ops/cbsr_pallas.py:42", "bfloat16"),
-        "cbsr_sample": (cbsr_cuda.sample_cuda, "maxk_tpu_torch/csrc/cbsr.cu",
+        "cbsr_sample": ("maxk_tpu_torch/csrc/cbsr.cu",
                         "maxk_tpu/ops/cbsr_pallas.py:52", "bfloat16"),
-        "spmm_bricks": (spmm_bricks.spmm_bricks_cuda, "maxk_tpu_torch/csrc/spmm_bricks.cu",
+        "spmm_bricks": ("maxk_tpu_torch/csrc/spmm_bricks.cu",
                         "maxk_tpu/ops/spmm_bricks.py:37", "float32"),
-        "slab_gather": (gather_cuda.slab_gather_cuda, "maxk_tpu_torch/csrc/gather.cu",
+        "slab_gather": ("maxk_tpu_torch/csrc/gather.cu",
                         "maxk_tpu/bench/micro.py:142", "2048_float32"),
-        "dma_gather": (gather_cuda.dma_gather_cuda, "maxk_tpu_torch/csrc/gather.cu",
+        "dma_gather": ("maxk_tpu_torch/csrc/gather.cu",
                        "maxk_tpu/bench/micro.py:204", "float32"),
-        "take_along_rows": (gather_cuda.take_along_rows_cuda, "maxk_tpu_torch/csrc/gather.cu",
+        "take_along_rows": ("maxk_tpu_torch/csrc/gather.cu",
                             "maxk_tpu/bench/probe_topk.py:96", "262144_float32"),
-        "spmm_csr": (spmm_csr.spmm_csr_cuda, "maxk_tpu_torch/csrc/spmm_csr.cu",
+        "spmm_csr": ("maxk_tpu_torch/csrc/spmm_csr.cu",
                      "maxk_tpu/ops/spmm_xla.py:21", "A_float32"),
-        "spgemm_cbsr": (spmm_csr.spgemm_cbsr_cuda, "maxk_tpu_torch/csrc/spmm_csr.cu",
+        "spgemm_cbsr": ("maxk_tpu_torch/csrc/spmm_csr.cu",
                         "maxk_tpu/ops/spgemm.py:157", "bfloat16"),
-        "sspmm_cbsr": (spmm_csr.sspmm_cbsr_cuda, "maxk_tpu_torch/csrc/spmm_csr.cu",
+        "sspmm_cbsr": ("maxk_tpu_torch/csrc/spmm_csr.cu",
                        "maxk_tpu/ops/spgemm.py:224", "bfloat16"),
     }
     counts = {}
 
     def reset():
-        for fn, *_ in wrappers.values():
-            fn.launches = 0
+        reset_launches(wrappers)
 
     def read(path):
-        counts[path] = {name: w[0].launches for name, w in wrappers.items()}
+        counts[path] = read_launches(wrappers)
         emit("launches", path=path, **counts[path])
         return counts[path]
 
@@ -1862,8 +1873,7 @@ def main() -> int:
         phase_launch_path()
         phase_small_slice()
         # the sharded proteins case (counts reset inside, read right after)
-        counts["sharded_proteins"] = phase_sharded_small(
-            {name: w[0] for name, w in wrappers.items()})
+        counts["sharded_proteins"] = phase_sharded_small(tuple(wrappers))
         emit("launches", path="sharded_proteins", **counts["sharded_proteins"])
 
         # the single-device main path: the op, then training (segsum: K1 and
@@ -1913,7 +1923,7 @@ def main() -> int:
 
         # the row-partitioned path (counts reset inside, read right after)
         torch.cuda.empty_cache()
-        counts["sharded"] = phase_sharded_train(data, {name: w[0] for name, w in wrappers.items()})
+        counts["sharded"] = phase_sharded_train(data, tuple(wrappers))
         emit("launches", path="sharded", **counts["sharded"])
 
         # the benchmark path, through the entry points of maxk_tpu_torch.bench
@@ -1949,17 +1959,17 @@ def main() -> int:
         # the accuracy path: the golden floors, then ogbn-proteins x1.0
         torch.cuda.empty_cache()
         reset()
-        phase_golden(topk_cuda.maxk_mask_cuda)
+        phase_golden()
         read("golden")
         reset()
-        phase_proteins(topk_cuda.maxk_mask_cuda)
+        phase_proteins()
         read("proteins")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     kernels = []
-    for name, (_, source, replaces, key) in wrappers.items():
+    for name, (source, replaces, key) in wrappers.items():
         by_path = {path: c[name] for path, c in counts.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

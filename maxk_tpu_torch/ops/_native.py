@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from maxk_tpu_torch import telemetry
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
@@ -162,7 +164,8 @@ def check(name: str, t, dtypes, ndim: int = 2) -> None:
 def launch(name: str, entry: str, t, *args) -> None:
     """Call the C entry point `entry` on the current stream of `t`'s device,
     which must be the current device (else the wrapper `name` raises); raise
-    on a CUDA error. One device check a launch, and the stream as a raw
+    on a CUDA error, else count the launch under `name` in
+    `telemetry.launches`. One device check a launch, and the stream as a raw
     handle: building a `torch.cuda.Stream` costs more host time than a
     small kernel's work."""
     dev = t.get_device()
@@ -174,6 +177,7 @@ def launch(name: str, entry: str, t, *args) -> None:
     err = _fns[entry](*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+    telemetry.launches[name] += 1
 
 
 def l2_cache_bytes() -> int:

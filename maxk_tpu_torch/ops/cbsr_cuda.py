@@ -57,7 +57,7 @@ def _check_sel(name: str, sel: torch.Tensor, t: torch.Tensor) -> int:
 
 
 def densify_cuda(vals: torch.Tensor, sel: torch.Tensor, dim: int) -> torch.Tensor:
-    """The CUDA densify kernel. Counts its launches in `densify_cuda.launches`."""
+    """The CUDA densify kernel. Counts its launches in `telemetry.launches["cbsr_densify"]`."""
     _native.check("cbsr_densify", vals, KERNEL_DTYPES)
     v, k = vals.shape
     if _check_sel("cbsr_densify", sel, vals) != k:
@@ -70,15 +70,11 @@ def densify_cuda(vals: torch.Tensor, sel: torch.Tensor, dim: int) -> torch.Tenso
     name = "cbsr_densify_f32" if vals.dtype == torch.float32 else "cbsr_densify_bf16"
     _native.launch("cbsr_densify", name, vals, vals.data_ptr(), sel.data_ptr(), out.data_ptr(), v, k,
                    dim)
-    densify_cuda.launches += 1
     return out
 
 
-densify_cuda.launches = 0
-
-
 def sample_cuda(z: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """The CUDA sample kernel. Counts its launches in `sample_cuda.launches`."""
+    """The CUDA sample kernel. Counts its launches in `telemetry.launches["cbsr_sample"]`."""
     _native.check("cbsr_sample", z, KERNEL_DTYPES)
     v, d = z.shape
     k = _check_sel("cbsr_sample", sel, z)
@@ -87,11 +83,7 @@ def sample_cuda(z: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
         return out
     name = "cbsr_sample_f32" if z.dtype == torch.float32 else "cbsr_sample_bf16"
     _native.launch("cbsr_sample", name, z, z.data_ptr(), sel.data_ptr(), out.data_ptr(), v, k, d)
-    sample_cuda.launches += 1
     return out
-
-
-sample_cuda.launches = 0
 
 
 def _on_cpu(name: str, t: torch.Tensor) -> None:

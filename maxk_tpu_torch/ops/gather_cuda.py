@@ -54,7 +54,7 @@ def _check_rows(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
 
 def slab_gather_cuda(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K6. The slab must fit the card's L2, which serves its rows. Counts
-    its launches in `slab_gather_cuda.launches`."""
+    its launches in `telemetry.launches["slab_gather"]`."""
     _check_rows("slab_gather", slab, idx)
     s, d = slab.shape
     nbytes = s * d * slab.element_size()
@@ -71,16 +71,12 @@ def slab_gather_cuda(slab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     name = "slab_gather_f32" if slab.dtype == torch.float32 else "slab_gather_bf16"
     _native.launch("slab_gather", name, slab, slab.data_ptr(), idx.data_ptr(), out.data_ptr(), s, d,
                    n)
-    slab_gather_cuda.launches += 1
     return out
-
-
-slab_gather_cuda.launches = 0
 
 
 def dma_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K7. Rows move as 16-byte chunks: D · itemsize must be a multiple of
-    16. Counts its launches in `dma_gather_cuda.launches`."""
+    16. Counts its launches in `telemetry.launches["dma_gather"]`."""
     _check_rows("dma_gather", x, idx)
     v, d = x.shape
     row_bytes = d * x.element_size()
@@ -95,16 +91,12 @@ def dma_gather_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     _native.launch("dma_gather", "dma_gather", x, x.data_ptr(), idx.data_ptr(), out.data_ptr(), v,
                    row_bytes, n)
-    dma_gather_cuda.launches += 1
     return out
-
-
-dma_gather_cuda.launches = 0
 
 
 def take_along_rows_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K8: one thread per (r, j). Counts its launches in
-    `take_along_rows_cuda.launches`."""
+    `telemetry.launches["take_along_rows"]`."""
     _native.check("take_along_rows", x, KERNEL_DTYPES)
     _native.check("take_along_rows", idx, (torch.int32,))
     r, d = x.shape
@@ -120,11 +112,7 @@ def take_along_rows_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     name = "take_rows_f32" if x.dtype == torch.float32 else "take_rows_bf16"
     _native.launch("take_along_rows", name, x, x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, k,
                    d)
-    take_along_rows_cuda.launches += 1
     return out
-
-
-take_along_rows_cuda.launches = 0
 
 
 def _on_cpu(name: str, t: torch.Tensor) -> None:

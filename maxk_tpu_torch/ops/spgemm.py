@@ -40,6 +40,13 @@ densify (`spgemm.py:196-211`). A sharded graph with a schedule
 (`build_sharded_graph(hybrid=True)`) all_gathers the features, dense or
 compressed, and runs `spmm_hybrid_sharded` both ways, whatever the mode,
 as the reference's does (`spgemm.py:51-69,172-182`).
+
+While the recorder is on (`telemetry.recording()`), each call adds the
+feature bytes it asks the aggregation to gather to the step's counter
+`agg.gather_bytes`: the walked CSR's edges times a gathered row's bytes,
+D features for K9 (A and Aᵀ), the tiles and the hybrid, k values and their
+int16 merged selectors for K10, k sampled values for K11, in the dtype the
+path reads. `agg.calls.<path>` counts the calls by the path they took.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from maxk_tpu_torch import telemetry
 from maxk_tpu_torch.ops.cbsr_cuda import densify, sample
 from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, KernelMode, missing_hybrid, resolve_mode
 from maxk_tpu_torch.ops.spmm_csr import spgemm_cbsr, spmm_csr, sspmm_cbsr
@@ -58,11 +66,21 @@ from maxk_tpu_torch.parallel.shard import ShardedGraph
 from maxk_tpu_torch.sparse.cbsr import CBSR
 
 
+def _gathered(path: str, csr, row_bytes: int) -> None:
+    """Count one aggregation call on `path` while the recorder is on, each
+    edge of `csr` gathering `row_bytes` of features."""
+    if telemetry.recording():
+        telemetry.count("agg.gather_bytes", csr.nnz * row_bytes)
+        telemetry.count(f"agg.calls.{path}", 1)
+
+
 def _local_spmm(csr, tiles, x: torch.Tensor, mode: str, sharded: bool = False) -> torch.Tensor:
     """A @ x for one operand: `csr`, or its tile tables `tiles` under the
     tile modes (the scan on a rank's block, `sharded`)."""
     resolved = resolve_mode(mode, tiles is not None)
+    row_bytes = x.shape[1] * x.element_size()
     if resolved == KernelMode.SEGSUM:
+        _gathered("k9", csr, row_bytes)
         return spmm_csr(csr, x)
     if resolved in HYBRID_MODES:  # a rank's block without a strip schedule
         raise missing_hybrid(resolved)
@@ -70,7 +88,9 @@ def _local_spmm(csr, tiles, x: torch.Tensor, mode: str, sharded: bool = False) -
         raise ValueError(f"kernel_mode={mode!r} needs edge-tile tables: build the graph with "
                          "build_tiles=True")
     if resolved == KernelMode.TILES_XLA and not sharded:
+        _gathered("tiles_xla", csr, row_bytes)
         return spmm_tiles_xla(tiles, x)
+    _gathered("tiles_scan", csr, row_bytes)
     return spmm_tiles_scan(tiles, x)
 
 
@@ -95,6 +115,8 @@ def _spmm_impl(graph, x: torch.Tensor, mode: str, transpose: bool) -> torch.Tens
     if isinstance(graph, ShardedGraph):
         resolve_mode(mode)  # pallas raises before any collective
         if graph.hybrid is not None:
+            _gathered("hybrid", graph.bwd if transpose else graph.fwd,
+                      x.shape[1] * x.element_size())
             return spmm_hybrid_sharded(graph.hybrid, all_gather_rows(x, graph.mesh), graph.mesh,
                                        transpose=transpose)
         if transpose:  # (Vp, D) partials → summed local rows
@@ -104,6 +126,7 @@ def _spmm_impl(graph, x: torch.Tensor, mode: str, transpose: bool) -> torch.Tens
                            sharded=True)
     hybrid = _hybrid_mode(graph, mode)
     if hybrid is not None:
+        _gathered(hybrid.value, graph.csr, x.shape[1] * x.element_size())
         return spmm_hybrid(graph.hybrid, x, transpose=transpose,
                            feat_int8=hybrid == KernelMode.HYBRID_INT8)
     if transpose:
@@ -140,15 +163,18 @@ class _MaxKSpGEMM(torch.autograd.Function):
             # sharded, gathers fewer bytes)
             vals = vals.to(compute_dtype)
         resolve_mode(mode)  # pallas raises before any collective
+        k, item = vals.shape[1], vals.element_size()
         if isinstance(graph, ShardedGraph):
             # gather the compressed features, not (Vp, dim) dense rows;
             # x is then whole, so the local block needs no second gather
             vals, sel = all_gather_rows(vals, graph.mesh), all_gather_rows(sel, graph.mesh)
             h = graph.hybrid
             if h is not None:  # the pre-scale folded into the values, as below
+                _gathered("hybrid", graph.fwd, dim * item)
                 x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
                 y = spmm_hybrid_sharded(h, x, graph.mesh, pre_applied=True)
             elif resolve_mode(mode, graph.fwd_tiles is not None) == KernelMode.SEGSUM:
+                _gathered("k10", graph.fwd, k * (item + 2))
                 y = spgemm_cbsr(graph.fwd, vals, sel, dim)
             else:
                 y = _local_spmm(graph.fwd, graph.fwd_tiles, densify(vals, sel, dim), mode,
@@ -159,9 +185,12 @@ class _MaxKSpGEMM(torch.autograd.Function):
             # the pre-scale folded into the (V, k) values: the same product
             # (unselected entries are 0 either way), one (V, dim) tensor fewer
             h = graph.hybrid
+            _gathered(hybrid.value, graph.csr, dim * item)
             x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
             y = spmm_hybrid(h, x, pre_applied=True, feat_int8=hybrid == KernelMode.HYBRID_INT8)
         elif _segsum(graph, mode):
+            # each edge reads its source's merged row: k values, k int16 selectors
+            _gathered("k10", graph.csr, k * (item + 2))
             y = spgemm_cbsr(graph.csr, vals, sel, dim)
         else:
             y = _spmm_impl(graph, densify(vals, sel, dim), mode, transpose=False)
@@ -174,6 +203,7 @@ class _MaxKSpGEMM(torch.autograd.Function):
             g = g.to(ctx.compute_dtype)
         graph = ctx.graph
         if not isinstance(graph, ShardedGraph) and _segsum(graph, ctx.mode):
+            _gathered("k11", graph.csc, sel.shape[1] * g.element_size())
             dvals = sspmm_cbsr(graph.csc, g.contiguous(), sel)
         else:
             dvals = sample(_spmm_impl(graph, g.contiguous(), ctx.mode, transpose=True), sel)

@@ -133,7 +133,7 @@ def _smem_bytes(wb: int, win: int, dtype: torch.dtype) -> tuple[int, int]:
 
 
 def spmm_bricks_cuda(sched: BrickSchedule, x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel. Counts its launches in `spmm_bricks_cuda.launches`."""
+    """The CUDA kernel. Counts its launches in `telemetry.launches["spmm_bricks"]`."""
     _native.check("spmm_bricks", x, KERNEL_DTYPES)
     _check_x("spmm_bricks", sched, x)
     _check_schedule(sched, x.device)
@@ -160,11 +160,7 @@ def spmm_bricks_cuda(sched: BrickSchedule, x: torch.Tensor) -> torch.Tensor:
         y.data_ptr(), sched.num_chunks, sched.ch, sched.slots, sched.num_sgroups, sched.sg,
         sched.panel, sched.wb, sched.win, sched.num_nodes, v, d,
     )
-    spmm_bricks_cuda.launches += 1
     return y
-
-
-spmm_bricks_cuda.launches = 0
 
 
 def spmm_bricks(sched: BrickSchedule, x: torch.Tensor) -> torch.Tensor:

@@ -160,7 +160,7 @@ def _suffix(t: torch.Tensor) -> str:
 
 
 def spmm_csr_cuda(csr: CSRGraph, x: torch.Tensor) -> torch.Tensor:
-    """K9 on the card. Counts its launches in `spmm_csr_cuda.launches`."""
+    """K9 on the card. Counts its launches in `telemetry.launches["spmm_csr"]`."""
     _native.check("spmm_csr", x, KERNEL_DTYPES)
     segs = _segments("spmm_csr", csr, x)
     d = x.shape[1]
@@ -169,17 +169,13 @@ def spmm_csr_cuda(csr: CSRGraph, x: torch.Tensor) -> torch.Tensor:
         return out
     _launch("spmm_csr", f"spmm_csr_{_suffix(x)}", csr, segs, x, (x, out), d, d,
             counters=-(-d // _slice_cols(x.element_size())))
-    spmm_csr_cuda.launches += 1
     return out
-
-
-spmm_csr_cuda.launches = 0
 
 
 def spgemm_cbsr_cuda(csr: CSRGraph, vals: torch.Tensor, sel: torch.Tensor,
                      dim: int) -> torch.Tensor:
     """K10 on the card: (n, k) values and selectors of the CBSR over the
-    CSR's n columns. Counts its launches in `spgemm_cbsr_cuda.launches`."""
+    CSR's n columns. Counts its launches in `telemetry.launches["spgemm_cbsr"]`."""
     _native.check("spgemm_cbsr", vals, KERNEL_DTYPES)
     k = _check_sel("spgemm_cbsr", sel, vals)
     if k != vals.shape[1] or k < 1 or dim < 1:
@@ -195,16 +191,12 @@ def spgemm_cbsr_cuda(csr: CSRGraph, vals: torch.Tensor, sel: torch.Tensor,
     merged = (torch.empty_like(vals), torch.empty(sel.shape, dtype=torch.int16, device=sel.device))
     _launch("spgemm_cbsr", f"spgemm_cbsr_{_suffix(vals)}", csr, segs, vals,
             (vals, sel, *merged, out), dim, k, dim, vals.shape[0], counters=1, hubs=True)
-    spgemm_cbsr_cuda.launches += 1
     return out
-
-
-spgemm_cbsr_cuda.launches = 0
 
 
 def sspmm_cbsr_cuda(csc: CSRGraph, g: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """K11 on the card: the (rows of csc, k) sampled Aᵀ @ g. Counts its
-    launches in `sspmm_cbsr_cuda.launches`."""
+    launches in `telemetry.launches["sspmm_cbsr"]`."""
     _native.check("sspmm_cbsr", g, KERNEL_DTYPES)
     _native.check("sspmm_cbsr", sel, (torch.int32,))
     rows, k = sel.shape
@@ -219,11 +211,7 @@ def sspmm_cbsr_cuda(csc: CSRGraph, g: torch.Tensor, sel: torch.Tensor) -> torch.
     cols = k11_slice(g.element_size(), k, d, csc.num_nodes, csc.nnz)
     _launch("sspmm_cbsr", f"sspmm_cbsr_{_suffix(g)}", csc, segs, g, (g, sel, out), k,
             segs.long_segments, k, d, cols, counters=-(-d // cols), work=True)
-    sspmm_cbsr_cuda.launches += 1
     return out
-
-
-sspmm_cbsr_cuda.launches = 0
 
 
 def spmm_csr(csr: CSRGraph, x: torch.Tensor) -> torch.Tensor:

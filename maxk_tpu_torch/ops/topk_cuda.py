@@ -64,7 +64,7 @@ def maxk_mask_plain(x: torch.Tensor, k: int):
 
 def maxk_mask_cuda(x: torch.Tensor, k: int):
     """The CUDA kernel: one warp per row. D must be a multiple of 32, at
-    most 1024. Counts its launches in `maxk_mask_cuda.launches`."""
+    most 1024. Counts its launches in `telemetry.launches["maxk_mask"]`."""
     _native.check("maxk_mask", x, KERNEL_DTYPES)
     v, d = x.shape
     if d % 32 or not 32 <= d <= 1024:
@@ -77,11 +77,7 @@ def maxk_mask_cuda(x: torch.Tensor, k: int):
         return y, take
     name = "maxk_mask_f32" if x.dtype == torch.float32 else "maxk_mask_bf16"
     _native.launch("maxk_mask", name, x, x.data_ptr(), y.data_ptr(), take.data_ptr(), v, d, k)
-    maxk_mask_cuda.launches += 1
     return y, take
-
-
-maxk_mask_cuda.launches = 0
 
 
 def maxk_mask(x: torch.Tensor, k: int):
@@ -129,7 +125,7 @@ def topk_cbsr_plain(x: torch.Tensor, k: int):
 
 def topk_cbsr_cuda(x: torch.Tensor, k: int):
     """The CUDA kernel: one warp per row. D must be a multiple of 32, at
-    most 1024. Counts its launches in `topk_cbsr_cuda.launches`."""
+    most 1024. Counts its launches in `telemetry.launches["topk_cbsr"]`."""
     _native.check("topk_cbsr", x, KERNEL_DTYPES)
     v, d = x.shape
     if d % 32 or not 32 <= d <= 1024:
@@ -142,11 +138,7 @@ def topk_cbsr_cuda(x: torch.Tensor, k: int):
         return vals, sel
     name = "topk_cbsr_f32" if x.dtype == torch.float32 else "topk_cbsr_bf16"
     _native.launch("topk_cbsr", name, x, x.data_ptr(), vals.data_ptr(), sel.data_ptr(), v, d, k)
-    topk_cbsr_cuda.launches += 1
     return vals, sel
-
-
-topk_cbsr_cuda.launches = 0
 
 
 def topk_cbsr(x: torch.Tensor, k: int):

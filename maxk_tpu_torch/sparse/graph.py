@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from maxk_tpu_torch import telemetry
 from maxk_tpu_torch.sparse.csr import (
     CSRGraph,
     csr_to_scipy,
@@ -61,6 +62,31 @@ class Graph:
         return self.csr.nnz
 
 
+def _strip_schedule(csr: CSRGraph, norm: str, device, strip_cols, tail_band_cols: int, dim: int,
+                    strip_dtype):
+    """(CSR, strip schedule, perm) of `build_graph(hybrid=True)`: the CSR
+    degree-permuted on `device` with its schedule, or as it came with no
+    schedule where the graph is directed."""
+    dev = csr.device if device is None else torch.device(device)
+    on_dev = csr.to(dev)
+    if not check_hybrid_ok(on_dev):
+        return csr, None, None
+    if strip_dtype is None:
+        strip_dtype = auto_strip_dtype(on_dev)
+    if strip_cols is None:
+        strip_cols = auto_strip_cols(
+            csr.num_nodes, e_live=int(csr.indptr[-1]), dim=dim,
+            strip_itemsize=torch.empty((), dtype=strip_dtype).element_size(),
+            rates=card_rates(dev),
+        )
+    if tail_band_cols < 0:
+        tail_band_cols = auto_tail_band_cols(csr.num_nodes, strip_cols)
+    perm = degree_perm(csr)
+    csr = permute_csr(on_dev, perm)
+    return csr, build_hybrid(csr, s_cols=strip_cols, norm=norm, strip_dtype=strip_dtype,
+                             tail_band_cols=tail_band_cols), perm
+
+
 def build_graph(
     csr: CSRGraph,
     norm: str = "none",
@@ -94,46 +120,43 @@ def build_graph(
     carries `perm`. `strip_dtype` None: int8 where exact, else bf16;
     `strip_cols` None: `auto_strip_cols` for a `dim`-wide model at the
     device's rates; `tail_band_cols` −1: `auto_tail_band_cols`. The tail
-    keeps its own tile width (`TAIL_EDGE_TILE`), not `edge_tile`."""
-    hyb = perm = None
-    if hybrid:
-        dev = csr.device if device is None else torch.device(device)
-        on_dev = csr.to(dev)
-        if check_hybrid_ok(on_dev):
-            if strip_dtype is None:
-                strip_dtype = auto_strip_dtype(on_dev)
-            if strip_cols is None:
-                strip_cols = auto_strip_cols(
-                    csr.num_nodes, e_live=int(csr.indptr[-1]), dim=dim,
-                    strip_itemsize=torch.empty((), dtype=strip_dtype).element_size(),
-                    rates=card_rates(dev),
-                )
-            if tail_band_cols < 0:
-                tail_band_cols = auto_tail_band_cols(csr.num_nodes, strip_cols)
-            perm = degree_perm(csr)
-            csr = permute_csr(on_dev, perm)
-            hyb = build_hybrid(csr, s_cols=strip_cols, norm=norm, strip_dtype=strip_dtype,
-                               tail_band_cols=tail_band_cols)
-        del on_dev
-    g = with_norm(csr.to("cpu"), norm)
-    gt = csr_transpose(g)
-    if symmetric is None:
-        d = abs(csr_to_scipy(g) - csr_to_scipy(gt))
-        symmetric = d.nnz == 0 or float(d.max()) < 1e-6
-    if symmetric:
-        gt = g
-    if device is not None:
-        g = g.to(device)
-        gt = g if symmetric else gt.to(device)
-    g = with_segments(g, hubs=True)  # K10 walks A
-    gt = g if symmetric else with_segments(gt)
-    tiles = tiles_t = None
-    if build_tiles:
-        def tables(a: CSRGraph) -> EdgeTiles:
-            if device_builder:
-                return build_edge_tiles_device(a, row_block, edge_tile)
-            return build_edge_tiles(a, row_block, edge_tile).to(a.device)
+    keeps its own tile width (`TAIL_EDGE_TILE`), not `edge_tile`.
 
-        tiles = tables(g)
-        tiles_t = tiles if symmetric else tables(gt)
+    The build and each phase are host-clock `telemetry` set-up spans:
+    `build`, `build.hybrid`, `build.norm` (the copy to the host and the
+    norm fold), `build.transpose`, `build.symmetry`, `build.to_device`,
+    `build.segments`, `build.tiles`; none synchronizes the device."""
+    with telemetry.span("build", device=False):
+        hyb = perm = None
+        if hybrid:
+            with telemetry.span("build.hybrid", device=False):
+                csr, hyb, perm = _strip_schedule(csr, norm, device, strip_cols, tail_band_cols,
+                                                 dim, strip_dtype)
+        with telemetry.span("build.norm", device=False):
+            g = with_norm(csr.to("cpu"), norm)
+        with telemetry.span("build.transpose", device=False):
+            gt = csr_transpose(g)
+        if symmetric is None:
+            with telemetry.span("build.symmetry", device=False):
+                d = abs(csr_to_scipy(g) - csr_to_scipy(gt))
+                symmetric = d.nnz == 0 or float(d.max()) < 1e-6
+        if symmetric:
+            gt = g
+        if device is not None:
+            with telemetry.span("build.to_device", device=False):
+                g = g.to(device)
+                gt = g if symmetric else gt.to(device)
+        with telemetry.span("build.segments", device=False):
+            g = with_segments(g, hubs=True)  # K10 walks A
+            gt = g if symmetric else with_segments(gt)
+        tiles = tiles_t = None
+        if build_tiles:
+            def tables(a: CSRGraph) -> EdgeTiles:
+                if device_builder:
+                    return build_edge_tiles_device(a, row_block, edge_tile)
+                return build_edge_tiles(a, row_block, edge_tile).to(a.device)
+
+            with telemetry.span("build.tiles", device=False):
+                tiles = tables(g)
+                tiles_t = tiles if symmetric else tables(gt)
     return Graph(csr=g, csc=gt, tiles=tiles, tiles_t=tiles_t, hybrid=hyb, perm=perm)

@@ -25,6 +25,14 @@ masks an uninterrupted one would.
 `--validate_kernels` (MaxK runs only) holds `maxk_spgemm` under the run's
 kernel mode against the plain path before the first step, as the
 reference's loop does, and raises when they disagree.
+
+The train step and the evaluation are `telemetry` steps, their phases
+spans (`train.forward`: the model and the loss; `train.backward`;
+`train.optimizer`: Adam's step; `eval.forward`),
+recorded while a profiler session runs or under `--profile_kernels`, which
+logs every 10th epoch's device split after the warm-up from them: the
+reference's CUDA-event forward / backward split
+(`maxk_gnn_integrated.py:119-151`).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from maxk_tpu_torch import telemetry
 from maxk_tpu_torch.data.datasets import GraphData
 from maxk_tpu_torch.models.models import build_model
 from maxk_tpu_torch.ops.dispatch import HYBRID_MODES, TILE_MODES, missing_hybrid
@@ -172,11 +181,17 @@ def make_train_step(model, optimizer, multilabel: bool):
     loss before the update, as the reference's step returns it."""
 
     def train_step(graph, feats, labels, mask, generator):
-        optimizer.zero_grad(set_to_none=True)
-        logits = model(graph, feats, train=True, generator=generator)
-        loss = _loss_fn(logits, labels, mask, multilabel)
-        loss.backward()
-        optimizer.step()
+        with telemetry.step("train", feats.device):
+            # no device work: a span here would put two events where the
+            # device waits for the first launch
+            optimizer.zero_grad(set_to_none=True)
+            with telemetry.span("train.forward"):
+                logits = model(graph, feats, train=True, generator=generator)
+                loss = _loss_fn(logits, labels, mask, multilabel)
+            with telemetry.span("train.backward"):
+                loss.backward()
+            with telemetry.span("train.optimizer"):
+                optimizer.step()
         return loss.detach(), logits.detach()
 
     return train_step
@@ -194,8 +209,10 @@ def make_eval_step(model, metric: str = "f1"):
 
     @torch.no_grad()
     def eval_step(graph, feats, labels, masks):
-        logits = model(graph, feats, train=False)
-        return tuple(fn(logits, labels, m) for m in masks)
+        with telemetry.step("eval", feats.device):
+            with telemetry.span("eval.forward"):
+                logits = model(graph, feats, train=False)
+            return tuple(fn(logits, labels, m) for m in masks)
 
     return eval_step
 
@@ -243,6 +260,19 @@ def restore_state(state: TrainState, payload: dict) -> int:
     return int(payload["epoch"]) + 1
 
 
+def step_split(since_ns: int) -> str:
+    """The ms of the train step's forward (model and loss), backward and
+    optimizer spans recorded since `since_ns`: device time on a card, host
+    time on the CPU."""
+    ms, clock = dict.fromkeys(("forward", "backward", "optimizer"), 0.0), "host"
+    for name, start, end, device_s in telemetry.records(since_ns):
+        phase = name.removeprefix("train.")
+        if phase in ms:
+            ms[phase] += 1e3 * device_s if device_s is not None else (end - start) / 1e6
+            clock = "device" if device_s is not None else clock
+    return " | ".join(f"{p} {v:.2f} ms" for p, v in ms.items()) + f" ({clock})"
+
+
 def train(
     cfg: TrainConfig,
     data: GraphData,
@@ -282,41 +312,37 @@ def train(
     eval_step = make_eval_step(state.model, dataset_metric(data))
     feats, labels, masks = _device_arrays(permuted_data(data, state.graph.perm), device)
 
-    for epoch in range(start_epoch, cfg.epochs):
-        synchronize(device)
-        t0 = time.perf_counter()
-        loss, _ = train_step(state.graph, feats, labels, masks[0], state.generator)
-        synchronize(device)
-        dt = time.perf_counter() - t0
-        if epoch >= warmup_epochs:
-            state.epoch_times.append(dt)
-            if cfg.profile_kernels and epoch % 10 == 0:
-                t1 = time.perf_counter()
-                with torch.no_grad():
-                    state.model(state.graph, feats, train=False)
-                synchronize(device)
-                log(
-                    f"  profile: fwd {1e3*(time.perf_counter()-t1):.2f} ms "
-                    f"of {dt*1e3:.2f} ms step"
-                )
-        tr, va, te = (float(a) for a in eval_step(state.graph, feats, labels, masks))
-        loss = float(loss)
-        state.losses.append(loss)
-        if va > state.best_val:
-            state.best_val, state.best_test = va, te
-            if checkpoint_dir:
-                save_best(checkpoint_dir, checkpoint_payload(state, epoch))
-        if writer is not None:
-            writer.add_scalar("loss", loss, epoch)
-            writer.add_scalar("train_acc", tr, epoch)
-            writer.add_scalar("val_acc", va, epoch)
-            writer.add_scalar("test_acc", te, epoch)
-        log(
-            f"epoch {epoch:05d} | loss {loss:.4f} | train {tr:.4f} "
-            f"| val {va:.4f} | test {te:.4f} | {dt*1e3:.1f} ms"
-        )
-        if checkpoint_dir and cfg.checkpoint_every > 0 and (epoch + 1) % cfg.checkpoint_every == 0:
-            save_checkpoint(checkpoint_dir, checkpoint_payload(state, epoch), step=epoch)
+    with telemetry.enabled(cfg.profile_kernels):
+        for epoch in range(start_epoch, cfg.epochs):
+            synchronize(device)
+            since = time.perf_counter_ns()
+            t0 = time.perf_counter()
+            loss, _ = train_step(state.graph, feats, labels, masks[0], state.generator)
+            synchronize(device)
+            dt = time.perf_counter() - t0
+            if epoch >= warmup_epochs:
+                state.epoch_times.append(dt)
+                if cfg.profile_kernels and epoch % 10 == 0:
+                    log(f"  profile: {step_split(since)} of {dt*1e3:.2f} ms step")
+            tr, va, te = (float(a) for a in eval_step(state.graph, feats, labels, masks))
+            loss = float(loss)
+            state.losses.append(loss)
+            if va > state.best_val:
+                state.best_val, state.best_test = va, te
+                if checkpoint_dir:
+                    save_best(checkpoint_dir, checkpoint_payload(state, epoch))
+            if writer is not None:
+                writer.add_scalar("loss", loss, epoch)
+                writer.add_scalar("train_acc", tr, epoch)
+                writer.add_scalar("val_acc", va, epoch)
+                writer.add_scalar("test_acc", te, epoch)
+            log(
+                f"epoch {epoch:05d} | loss {loss:.4f} | train {tr:.4f} "
+                f"| val {va:.4f} | test {te:.4f} | {dt*1e3:.1f} ms"
+            )
+            if (checkpoint_dir and cfg.checkpoint_every > 0
+                    and (epoch + 1) % cfg.checkpoint_every == 0):
+                save_checkpoint(checkpoint_dir, checkpoint_payload(state, epoch), step=epoch)
     if state.epoch_times:
         log(
             f"avg epoch time (post-warmup): "

@@ -13,6 +13,7 @@ it there as
 import pytest
 import torch
 
+from maxk_tpu_torch import telemetry
 from maxk_tpu_torch.data.datasets import load_dataset
 from maxk_tpu_torch.data.synthetic import rmat_graph
 from maxk_tpu_torch.ops import cbsr_cuda, topk_cuda
@@ -162,9 +163,9 @@ def test_sharded_sage_world_size_1_matches_single_device(cuda):
     single = train(cfg, data, warmup_epochs=3).losses
     mesh = init_mesh(0, 1, "cuda", free_tcp_init_method())
     try:
-        before = topk_cuda.topk_cbsr_cuda.launches
+        before = telemetry.launches["topk_cbsr"]
         sharded = train_sharded(cfg, data, mesh, warmup_epochs=3).losses
-        assert topk_cuda.topk_cbsr_cuda.launches - before == 2 * 3 * 2  # layers × steps × (train, eval)
+        assert telemetry.launches["topk_cbsr"] - before == 2 * 3 * 2  # layers × steps × (train, eval)
     finally:
         destroy_mesh(mesh)
     assert max(abs(a - b) / abs(b) for a, b in zip(sharded, single)) <= 1e-3
@@ -338,16 +339,15 @@ def test_wrappers_launch_on_the_current_stream(cuda):
 def test_each_launch_counts_once(cuda):
     x = torch.randn(64, 64, device=cuda)
     sel = torch.zeros(64, 4, dtype=torch.int32, device=cuda)
-    counters = (topk_cuda.maxk_mask_cuda, topk_cuda.topk_cbsr_cuda, cbsr_cuda.densify_cuda,
-                cbsr_cuda.sample_cuda)
-    before = [c.launches for c in counters]
+    counters = ("maxk_mask", "topk_cbsr", "cbsr_densify", "cbsr_sample")
+    before = [telemetry.launches[c] for c in counters]
     topk_cuda.maxk_mask(x, 4)
     topk_cuda.topk_cbsr(x, 4)
     cbsr_cuda.densify(x[:, :4].contiguous(), sel, 64)
     cbsr_cuda.sample(x, sel)
     topk_cuda.maxk_mask_plain(x, 4)  # the plain versions count nothing
     topk_cuda.topk_cbsr_plain(x, 4)
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    assert [telemetry.launches[c] - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -525,11 +525,11 @@ def test_spmm_bricks_kernel_matches_plain(cuda, case, dtype):
     sched = make().to(cuda)
     x = torch.randn((sched.num_cols, d), generator=torch.Generator().manual_seed(1))
     x = x.to(dtype).to(cuda)
-    before = spmm_bricks_cuda.launches
+    before = telemetry.launches["spmm_bricks"]
     y = spmm_bricks_cuda(sched, x)
     ref = spmm_bricks_plain(sched, x)
     torch.cuda.synchronize()
-    assert spmm_bricks_cuda.launches - before == 1
+    assert telemetry.launches["spmm_bricks"] - before == 1
     assert y.dtype == dtype and y.shape == ref.shape
     err = (y.float() - ref.float()).abs()
     scale = ref.float().abs().max()
@@ -632,13 +632,13 @@ def test_gather_wrappers_count_and_raise(cuda):
     x = torch.randn(64, 64, device=cuda)
     i1 = torch.zeros(10, dtype=torch.int32, device=cuda)
     i2 = torch.zeros(64, 4, dtype=torch.int32, device=cuda)
-    counters = (gc.slab_gather_cuda, gc.dma_gather_cuda, gc.take_along_rows_cuda)
-    before = [c.launches for c in counters]
+    counters = ("slab_gather", "dma_gather", "take_along_rows")
+    before = [telemetry.launches[c] for c in counters]
     gc.slab_gather(x, i1)
     gc.dma_gather(x, i1)
     gc.take_along_rows(x, i2)
     gc.gather_rows_plain(x, i1)  # the plain versions count nothing
-    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    assert [telemetry.launches[c] - b for c, b in zip(counters, before)] == [1, 1, 1]
     with pytest.raises(ValueError, match="16-byte"):
         gc.dma_gather(torch.randn(8, 3, device=cuda), i1)
     # a slab one row larger than the card's L2
@@ -1109,14 +1109,13 @@ def test_segsum_ops_run_the_csr_kernels(cuda, monkeypatch):
     g = _csr_graph(seed=5)
     graph = build_graph(g.csr.to("cpu"), device=cuda)
     v = graph.num_nodes
-    counters = (sc.spmm_csr_cuda, sc.spgemm_cbsr_cuda, sc.sspmm_cbsr_cuda,
-                cbsr_cuda.densify_cuda, cbsr_cuda.sample_cuda)
+    counters = ("spmm_csr", "spgemm_cbsr", "sspmm_cbsr", "cbsr_densify", "cbsr_sample")
 
     def launched(fn):
-        before = [c.launches for c in counters]
+        before = [telemetry.launches[c] for c in counters]
         fn()
         torch.cuda.synchronize()
-        return [c.launches - b for c, b in zip(counters, before)]
+        return [telemetry.launches[c] - b for c, b in zip(counters, before)]
 
     def no_index_add(*a, **kw):
         raise AssertionError("index_add_ reached on the card")
