@@ -113,6 +113,16 @@ def read_launches(names) -> dict:
     return {name: telemetry.launches[name] for name in names}
 
 
+# the MaxK activation's kernels: K4 where the conv aggregates through the
+# CBSR pair (one device under segsum in f32), K1 elsewhere
+MAXK_KERNELS = ("maxk_mask", "topk_cbsr")
+
+
+def maxk_launches() -> int:
+    """The launches of the MaxK activation's kernels so far."""
+    return sum(read_launches(MAXK_KERNELS).values())
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device time of `fn()` in ms over `iters` runs after one warm-up
     run: `micro.timeit`, by CUDA events."""
@@ -1045,10 +1055,11 @@ def phase_op(graph):
 
 
 def phase_train(data):
-    """The main path's training, under `--kernel_mode segsum` (K1 and K9 in
-    every layer): the baseline that tiles_train's and hybrid_train's steps
-    and losses are held to, whatever AUTO picks on this graph; then one
-    more step under the profiler (`step_profile`: busy share, top kernels)."""
+    """The main path's training, under `--kernel_mode segsum` (K4 and its
+    densify, K10 forward and K11 backward in every layer): the baseline
+    that tiles_train's and hybrid_train's steps and losses are held to,
+    whatever AUTO picks on this graph; then one more step under the
+    profiler (`step_profile`: busy share, top kernels)."""
     import torch
 
     from maxk_tpu_torch.train.config import TrainConfig
@@ -1739,27 +1750,27 @@ def phase_gnn_res(data):
 def phase_golden() -> None:
     """Every golden row (`train.golden.GOLDEN`, the published widths) through
     `run_golden(gc, device="cuda")`: best validation value at or above its
-    floor, and the MaxK mask kernel K1 launched on every MaxK row. A row
+    floor, and a MaxK kernel (K1 or K4) launched on every MaxK row. A row
     of `golden.KNOWN_MISSES` (each a ROADMAP C entry) may stay under its
     floor; it is printed as such."""
     from maxk_tpu_torch.train.golden import GOLDEN, KNOWN_MISSES, row_id, run_golden
 
     missed = []
     for gc in GOLDEN:
-        before = read_launches(["maxk_mask"])["maxk_mask"]
+        before = maxk_launches()
         t0 = time.perf_counter()
         best_val, best_test = run_golden(gc, device="cuda")
         row = row_id(gc)
-        launches = read_launches(["maxk_mask"])["maxk_mask"] - before
+        launches = maxk_launches() - before
         ok = best_val >= gc.min_val
         emit("golden", row=row, best_val=best_val, best_test=best_test, min_val=gc.min_val,
              ok=ok, known_miss=row in KNOWN_MISSES, seconds=time.perf_counter() - t0,
-             maxk_mask_launches=launches, scale=gc.scale, hidden=gc.hidden_dim,
+             maxk_launches=launches, scale=gc.scale, hidden=gc.hidden_dim,
              layers=gc.hidden_layers, epochs=gc.epochs)
         if not ok and row not in KNOWN_MISSES:
             missed.append(f"{row} {best_val:.4f} < {gc.min_val}")
         if gc.nonlinear == "maxk":
-            require(launches > 0, f"golden {row}: maxk_mask was not launched")
+            require(launches > 0, f"golden {row}: no MaxK kernel {MAXK_KERNELS} was launched")
     require(not missed, f"golden rows under their floors: {missed}")
 
 
@@ -1780,11 +1791,11 @@ def phase_proteins() -> None:
     cfg = TrainConfig(dataset="ogbn-proteins", model="sage", epochs=PROTEINS_EPOCHS, lr=0.01,
                       hidden_dim=DIM, hidden_layers=3, maxk=K, dropout=0.5, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    before = read_launches(["maxk_mask"])["maxk_mask"]
+    before = maxk_launches()
     t0 = time.perf_counter()
     state = train(cfg, data, warmup_epochs=1)
     wall = time.perf_counter() - t0
-    launches = read_launches(["maxk_mask"])["maxk_mask"] - before
+    launches = maxk_launches() - before
     synchronize(state.device)
     t1 = time.perf_counter()
     rocaucs = evaluate(state, data)
@@ -1796,12 +1807,12 @@ def phase_proteins() -> None:
          step_ms_post_warmup=1e3 * sum(state.epoch_times) / len(state.epoch_times),
          eval_ms=eval_ms, rocauc_train_val_test=list(rocaucs), best_val_rocauc=state.best_val,
          wall_s=wall, max_memory_allocated=torch.cuda.max_memory_allocated(),
-         maxk_mask_launches=launches)
+         maxk_launches=launches)
     require(len(state.losses) == PROTEINS_EPOCHS
             and all(math.isfinite(x) for x in state.losses),
             f"proteins: non-finite or missing losses {state.losses}")
     require(all(0.0 < x < 1.0 for x in rocaucs), f"proteins: ROC-AUC {rocaucs} outside (0, 1)")
-    require(launches > 0, "proteins: maxk_mask was not launched")
+    require(launches > 0, f"proteins: no MaxK kernel {MAXK_KERNELS} was launched")
 
 
 def main() -> int:
@@ -1876,19 +1887,19 @@ def main() -> int:
         counts["sharded_proteins"] = phase_sharded_small(tuple(wrappers))
         emit("launches", path="sharded_proteins", **counts["sharded_proteins"])
 
-        # the single-device main path: the op, then training (segsum: K1 and
-        # K9 in the model, K10 and K11 in maxk_spgemm)
+        # the single-device main path: the op, then training (segsum in f32:
+        # K4 and its densify in the model, K10 and K11 in maxk_spgemm; no K1
+        # and no K9)
         reset()
         phase_op(graph)
         torch.cuda.empty_cache()
         segsum_losses, segsum_step = phase_train(data)
         single = read("single_device")
-        for name in ("maxk_mask", "spmm_csr", "spgemm_cbsr", "sspmm_cbsr"):
-            require(single[name] > 0, f"{name} was not launched on the main path")
-        require(single["spmm_csr"] >= 2 * LAYERS * EPOCHS,
-                f"spmm_csr launched {single['spmm_csr']} < {2 * LAYERS * EPOCHS} times")
-        require(single["maxk_mask"] >= LAYERS * EPOCHS,
-                f"maxk_mask launched {single['maxk_mask']} < {LAYERS * EPOCHS} times")
+        for name in ("topk_cbsr", "spgemm_cbsr", "sspmm_cbsr"):
+            require(single[name] >= LAYERS * EPOCHS,
+                    f"{name} launched {single[name]} < {LAYERS * EPOCHS} times on the main path")
+        for name in ("maxk_mask", "spmm_csr"):
+            require(single[name] == 0, f"{name} launched {single[name]} times on the main path")
 
         # GNNRes: no kernel of ours on its path
         torch.cuda.empty_cache()
@@ -1954,7 +1965,8 @@ def main() -> int:
         reset()
         phase_lookahead_ckpt()
         ckpt = read("lookahead_ckpt")
-        require(ckpt["maxk_mask"] > 0, "maxk_mask was not launched on the checkpoint path")
+        require(sum(ckpt[name] for name in MAXK_KERNELS) > 0,
+                f"no MaxK kernel {MAXK_KERNELS} was launched on the checkpoint path")
 
         # the accuracy path: the golden floors, then ogbn-proteins x1.0
         torch.cuda.empty_cache()

@@ -3,9 +3,11 @@
 Port of `maxk_tpu/models/layers.py`: `MaxKSAGEConv`, `MaxKGraphConv`,
 `MaxKGINConv` and `_AggMixin._aggregate`. Degree normalization lives in
 the graph's edge values (`build_graph(norm=...)`: "right" for SAGE's mean,
-"both" for GCN, "none" for GIN's sum). Each conv takes an optional CBSR:
-on a sharded graph the aggregation then runs the compact `maxk_spgemm`,
-which all_gathers V·k values instead of V·D features.
+"both" for GCN, "none" for GIN's sum). Each conv takes an optional CBSR,
+which the models pass where `takes_cbsr` says; the aggregation then runs
+the compact `maxk_spgemm`: on a sharded graph it all_gathers V·k values
+instead of V·D features, on one device it runs the paper's pair, K10
+forward and K11 backward, which gather k values an edge instead of D.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
+from maxk_tpu_torch.ops.spgemm import is_segsum, maxk_spgemm, spmm
+from maxk_tpu_torch.parallel.shard import ShardedGraph
 from maxk_tpu_torch.sparse.cbsr import CBSR, cbsr_sample
 
 # flax's lecun_normal: truncated normal on [-2σ, 2σ], σ rescaled so the
@@ -38,14 +41,29 @@ def dense(
     return lin
 
 
+def takes_cbsr(conv: nn.Module, graph, dtype: torch.dtype) -> bool:
+    """Whether the MaxK activation before `conv` comes as a CBSR, which the
+    conv aggregates through `maxk_spgemm`: always on a `ShardedGraph`; on
+    one device where the conv aggregates its input (not `lin_before_mp`),
+    in f32 (`compute_dtype` None or float32 over `dtype` features), on a
+    graph whose mode resolves to the CSR segment sum. Elsewhere the mask
+    and `spmm`: the tile and hybrid SpMMs densify anyway, and K10's bf16
+    is slower than K9's."""
+    if isinstance(graph, ShardedGraph):
+        return True
+    return (not getattr(conv, "lin_before_mp", False)
+            and (conv.compute_dtype or dtype) == torch.float32
+            and is_segsum(graph, conv.kernel_mode))
+
+
 def aggregate(graph, x: torch.Tensor, kernel_mode: str, compute_dtype,
               cbsr: Optional[CBSR] = None) -> torch.Tensor:
     """A @ x, in `compute_dtype` when given, returned in x's dtype.
 
-    With a CBSR (the models pass one on a sharded graph only), the compact
-    path: the values are sampled again from x, so that what happened to x
-    after densify (the model's dropout) reaches the aggregation as on one
-    device; with no dropout they are the CBSR's values (x == densify(cbsr))."""
+    With a CBSR (`takes_cbsr`), the compact path: the values are sampled
+    again from x, so that what happened to x after densify (the model's
+    dropout) reaches the aggregation; with no dropout they are the CBSR's
+    values (x == densify(cbsr))."""
     if cbsr is not None:
         cbsr = CBSR(values=cbsr_sample(x, cbsr.selector), selector=cbsr.selector)
         return maxk_spgemm(graph, cbsr, dim=x.shape[-1], mode=kernel_mode,

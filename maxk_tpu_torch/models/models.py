@@ -3,12 +3,15 @@
 Port of `MaxKSAGE`, `MaxKGCN`, `MaxKGIN`, the ReLU aliases `SAGE`, `GCN`
 and `GIN`, `GNNRes` and `_GNNBase._nonlinear`
 (`maxk_tpu/models/models.py:43-171`). The
-nonlinearity is "maxk" or "relu". With maxk on one device the activation
-is the mask kernel (`ops/topk_cuda.maxk_mask_fast`) and each layer
-aggregates the masked dense features with `spmm`. On a `ShardedGraph`
-it is the top-k → CBSR kernel (`maxk_cbsr_fast`) and its densify: the
-layer gets both, and aggregates through the compact `maxk_spgemm`, whose
-all_gather moves V·k values instead of V·D features. GNNRes is the
+nonlinearity is "maxk" or "relu". With maxk, where the conv takes a
+CBSR (`layers.takes_cbsr`: a `ShardedGraph`, or one device under the CSR
+segment sum in f32 with a conv that aggregates its input), the activation
+is the top-k → CBSR kernel (`maxk_cbsr_fast`) and its densify: the layer
+gets both, and aggregates through the compact `maxk_spgemm`, whose
+all_gather moves V·k values instead of V·D features, and whose one-device
+pair (K10, K11) gathers k values an edge instead of D. Elsewhere the
+activation is the mask kernel (`ops/topk_cuda.maxk_mask_fast`) and the
+layer aggregates the masked dense features with `spmm`. GNNRes is the
 residual GCN with flax's BatchNorm and no MaxK.
 """
 
@@ -19,9 +22,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from maxk_tpu_torch.models.layers import MaxKGINConv, MaxKGraphConv, MaxKSAGEConv, dense
+from maxk_tpu_torch.models.layers import (
+    MaxKGINConv, MaxKGraphConv, MaxKSAGEConv, dense, takes_cbsr,
+)
 from maxk_tpu_torch.ops.topk_cuda import maxk_cbsr_fast, maxk_mask_fast
-from maxk_tpu_torch.parallel.shard import ShardedGraph
 from maxk_tpu_torch.sparse.cbsr import cbsr_densify
 
 
@@ -82,13 +86,13 @@ class _GNNBase(nn.Module):
                 self.add_module(f"ln{i}", nn.LayerNorm(hidden_dim, eps=1e-6))
         self.lin_out = dense(hidden_dim, out_dim, True, generator)
 
-    def _nonlinear(self, x: torch.Tensor, graph):
-        """(activated dense, CBSR or None). Sharded, the CBSR is what the
-        compact aggregation gathers and densify(CBSR) ≡ x ⊙ mask; on one
-        device the mask kernel skips the compaction."""
+    def _nonlinear(self, x: torch.Tensor, graph, conv: nn.Module):
+        """(activated dense, CBSR or None). Where `conv` takes a CBSR it is
+        what the compact aggregation reads and densify(CBSR) ≡ x ⊙ mask;
+        elsewhere the mask kernel skips the compaction."""
         if self.nonlinear != "maxk":
             return torch.relu(x), None
-        if isinstance(graph, ShardedGraph):
+        if takes_cbsr(conv, graph, x.dtype):
             cbsr = maxk_cbsr_fast(x, self.maxk)
             return cbsr_densify(cbsr, x.shape[-1]).to(x.dtype), cbsr
         return maxk_mask_fast(x, self.maxk), None
@@ -99,10 +103,11 @@ class _GNNBase(nn.Module):
     ) -> torch.Tensor:
         x = self.lin_in(x)
         for i in range(self.num_layers):
-            x, cbsr = self._nonlinear(x, graph)
+            conv = getattr(self, f"conv{i}")
+            x, cbsr = self._nonlinear(x, graph, conv)
             if train:
                 x = dropout(x, self.dropout, generator)
-            x = getattr(self, f"conv{i}")(graph, x, cbsr)
+            x = conv(graph, x, cbsr)
             if self.norm:
                 x = getattr(self, f"ln{i}")(x)
         return self.lin_out(x)

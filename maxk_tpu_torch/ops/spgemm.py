@@ -105,8 +105,9 @@ def _hybrid_mode(graph, mode: str):
     return resolved
 
 
-def _segsum(graph, mode: str) -> bool:
-    """Whether a one-device graph's SpMM under `mode` is the CSR segment sum."""
+def is_segsum(graph, mode: str) -> bool:
+    """Whether a one-device graph's SpMM under `mode` is the CSR segment sum,
+    where maxk_spgemm runs K10 forward and K11 backward."""
     return (_hybrid_mode(graph, mode) is None
             and resolve_mode(mode, graph.tiles is not None) == KernelMode.SEGSUM)
 
@@ -188,7 +189,7 @@ class _MaxKSpGEMM(torch.autograd.Function):
             _gathered(hybrid.value, graph.csr, dim * item)
             x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
             y = spmm_hybrid(h, x, pre_applied=True, feat_int8=hybrid == KernelMode.HYBRID_INT8)
-        elif _segsum(graph, mode):
+        elif is_segsum(graph, mode):
             # each edge reads its source's merged row: k values, k int16 selectors
             _gathered("k10", graph.csr, k * (item + 2))
             y = spgemm_cbsr(graph.csr, vals, sel, dim)
@@ -202,7 +203,7 @@ class _MaxKSpGEMM(torch.autograd.Function):
         if ctx.compute_dtype is not None:
             g = g.to(ctx.compute_dtype)
         graph = ctx.graph
-        if not isinstance(graph, ShardedGraph) and _segsum(graph, ctx.mode):
+        if not isinstance(graph, ShardedGraph) and is_segsum(graph, ctx.mode):
             _gathered("k11", graph.csc, sel.shape[1] * g.element_size())
             dvals = sspmm_cbsr(graph.csc, g.contiguous(), sel)
         else:

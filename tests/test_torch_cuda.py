@@ -149,7 +149,7 @@ def test_topk_cbsr_backward_densifies(cuda):
 @pytest.mark.cuda
 def test_sharded_sage_world_size_1_matches_single_device(cuda):
     """The sharded path (K4, the CBSR collectives on NCCL, maxk_spgemm) at
-    world size 1 against the single-device path (K1, spmm), 3 steps from
+    world size 1 against the single-device path (K4, K10 and K11), 3 steps from
     the same parameters. Atomics sum in another order each run, so a
     top-k near-tie may flip: the bound is 1e-3 relative."""
     from maxk_tpu_torch.parallel.mesh import destroy_mesh, free_tcp_init_method, init_mesh

@@ -211,15 +211,27 @@ def test_enabled_restores_the_setting():
         assert not telemetry.active()
 
 
-def test_gather_bytes_of_a_sage_epoch():
-    """Every SAGE layer aggregates its (V, D) f32 features with K9's path:
-    forward and backward in the train step, forward in the evaluation."""
-    run = Run()
+def _epoch_counters(run):
+    """The counters of one epoch of `run` (train step and evaluation). MaxK:
+    K10 in both forwards (k f32 values and k int16 selectors an edge), K11
+    in the backward (k values); ReLU: K9 over (V, D) f32 rows, three times
+    a layer."""
+    nnz, k = run.state.graph.nnz, run.cfg.maxk
+    if run.cfg.nonlinear == "maxk":
+        return {"agg.gather_bytes": nnz * k * (2 * LAYERS * (4 + 2) + LAYERS * 4),
+                "agg.calls.k10": 2 * LAYERS, "agg.calls.k11": LAYERS}
+    return {"agg.gather_bytes": nnz * HIDDEN * 4 * 3 * LAYERS, "agg.calls.k9": 3 * LAYERS}
+
+
+@pytest.mark.parametrize("nonlinear", ["maxk", "relu"])
+def test_gather_bytes_of_a_sage_epoch(nonlinear):
+    """A MaxK SAGE layer aggregates through the CBSR pair, a ReLU one its
+    (V, D) f32 features with K9: forward and backward in the train step,
+    forward in the evaluation."""
+    run = Run(nonlinear=nonlinear)
     with telemetry.enabled():
         run.epoch()
-    calls = 2 * LAYERS + LAYERS
-    want = run.state.graph.nnz * HIDDEN * 4 * calls
-    assert telemetry.counters() == {"agg.gather_bytes": want, "agg.calls.k9": calls}
+    assert telemetry.counters() == _epoch_counters(run)
     train = [r for r in telemetry.records() if r[0] == "train"]
     assert len(train) == 1
 
@@ -330,7 +342,7 @@ def test_readers_on_a_recorded_cpu_run():
     assert len(spans) == 2 * 3
     host_ms = sum(e - s for _, s, e, _ in spans) / 1e6 / 2
     assert got["step_host_ms"] == pytest.approx(host_ms)
-    assert got["agg_gather_gb"] == pytest.approx(run.state.graph.nnz * HIDDEN * 4 * 6 / 1e9)
+    assert got["agg_gather_gb"] == pytest.approx(_epoch_counters(run)["agg.gather_bytes"] / 1e9)
     build = [r for r in telemetry.records() if r[0] in ("build.norm", "build.transpose",
                                                           "build.symmetry")]
     assert got["build_host_s"] == pytest.approx(sum(e - s for _, s, e, _ in build) / 1e9)
@@ -365,9 +377,9 @@ def test_device_readers_sum_device_time_per_epoch(monkeypatch):
 
 @pytest.mark.cuda
 def test_on_the_card_backward_counts_and_spans_add_up():
-    """On a card autograd runs the backward on its device thread: its K9
-    calls count all the same; the three phases' device times sum to within
-    the step's synchronized host time."""
+    """On a card autograd runs the backward on its device thread: its K11
+    calls count all the same, beside the forward's K10; the three phases'
+    device times sum to within the step's synchronized host time."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     run = Run(device="cuda")
@@ -378,7 +390,9 @@ def test_on_the_card_backward_counts_and_spans_add_up():
         run.step()
         torch.cuda.synchronize()
         host_s = (time.perf_counter_ns() - t0) / 1e9
-    assert telemetry.counters()["agg.calls.k9"] == 2 * LAYERS
+    counters = telemetry.counters()
+    assert counters["agg.calls.k10"] == counters["agg.calls.k11"] == LAYERS
+    assert "agg.calls.k9" not in counters
     phases = [r for r in telemetry.records(t0) if r[0] in TRAIN_PHASES]
     assert len(phases) == 3 and all(d is not None and d >= 0 for *_, d in phases)
     assert sum(d for *_, d in phases) <= host_s
