@@ -9,7 +9,12 @@ once a process, as every run draws the same one); the program's state from
 reference for
   sound         the program as a benchmark run drives it,
   control_tf32  the reference itself with TF32 on (the next precision down),
-  and each fault of `program.FAULTS`, planted in the program.
+  and each fault of `program.FAULTS` that the cell can have, planted in the
+  program (`no_exchange` on several cards only).
+A cell on several cards runs on as many ranks, one process a card
+(`ranks.spawn`), as a benchmark run does; the graph blocks are built once
+(`parallel.train.sharded_setup`, first seed) and shared by every seed and
+variant through `program.fresh_sharded_state`; rank 0 prints the lines.
 Each variant's numbers are judged by
 `checks.judge` against the cell's limits as its workload file has them
 (`judged`). One JSON line a seed on standard output (and appended to FILE).
@@ -29,6 +34,7 @@ its readings `checks.judge` finds correct under those limits.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -79,20 +85,98 @@ def readings(cell: str, seed: int, device: str = "cuda", sizes=None,
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    out = {"cell": cell, "seed": seed, "live_edges": inputs.num_edges, "build_graph_s": build_s,
+    return line(cell, seed, inputs.num_edges, build_s, ref_s, runs, base, traffic["limits"],
+                details)
+
+
+def line(cell, seed, live_edges, build_s, ref_s, runs, base, limits, details=False) -> dict:
+    """A seed's line: each variant's numbers against the reference's
+    readings `base`, and `checks.judge`'s verdict on them under `limits`."""
+    out = {"cell": cell, "seed": seed, "live_edges": live_edges, "build_graph_s": build_s,
            "reference_s": ref_s}
     for name, r in runs.items():
         out[name] = checks.gaps(r, base)
-        if details and name in ("sound", CONTROL):
+        if details:
             out.setdefault("detail", {})[name] = checks.detail(r, base)
-    out["judged"] = {name: checks.judge(out[name], traffic["limits"])[0] for name in runs}
+    out["judged"] = {name: checks.judge(out[name], limits)[0] for name in runs}
     out["losses"] = {"reference": base["losses"], "sound": runs["sound"]["losses"]} \
         if "sound" in runs else {"reference": base["losses"]}
     return out
 
 
+def sharded_readings(mesh, job: dict) -> list:
+    """`readings`' lines for each of `job["seeds"]`, on this rank's part of
+    a row-partitioned run; rank 0 prints them (and appends them to
+    `job["out"]`) as they come and returns them."""
+    from portbench import program, ranks
+
+    _, traffic, config = registry.cell(job["cell"])
+    config = {**config, **(job["sizes"] or {})}
+    ref = registry.reference(config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, rank, world = mesh.device, mesh.rank, mesh.world_size
+    steps = traffic["check_steps"]
+    graph = tuple(t.cpu() for t in gen.make_graph(config, dev))  # the device keeps no copy
+    built, lines = None, []
+    for seed in job["seeds"]:
+        inputs = gen.make_inputs(config, ref.parameters(config), seed, dev, graph)
+        ranks.same_inputs(inputs, mesh)
+        host = ranks.on_host(inputs)
+        del inputs
+        ranks.release(dev)
+        dseed = dropout_seed(seed)
+        cfg = program.train_config(config, traffic, dev.type, dseed)
+        data = program.host_graph_data(config, host)
+        if built is None:
+            state, build_s = program.sharded_setup_state(cfg, data, mesh)
+            built = state
+        else:
+            state, build_s = program.fresh_sharded_state(cfg, data, built), 0.0
+        runs = {}
+        for variant in job["variants"]:
+            st = state if variant == "sound" else program.fresh_sharded_state(cfg, data, built)
+            fault = variant if variant in program.FAULTS else None
+            runs[variant] = program.ShardedProgram(st, data, host.weights, fault).follow(steps)
+            del st
+            ranks.release(dev)
+        # keep the graph blocks alone for the next seeds, as a benchmark run
+        # frees the program before its reference
+        built = dataclasses.replace(built, model=None, optimizer=None, generator=None,
+                                    feats=None, labels=None, masks=())
+        del state, data
+        ranks.release(dev)
+        t0 = time.perf_counter()
+        base = ref.follow(host, config, traffic, dseed, steps, rank, world)
+        ref_s = time.perf_counter() - t0
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            runs[CONTROL] = ref.follow(host, config, traffic, dseed, steps, rank, world)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        ranks.release(dev)
+        if rank == 0:
+            out = line(job["cell"], seed, host.num_edges, build_s, ref_s, runs, base,
+                       traffic["limits"], job["details"])
+            _emit(out, job["out"])
+            lines.append(out)
+    return lines
+
+
+def _emit(out: dict, path: str) -> None:
+    text = json.dumps(out)
+    print(text, flush=True)
+    if path:
+        with open(path, "a") as f:
+            f.write(text + "\n")
+
+
 CONTROL = "control_tf32"
-FAULT_FACTOR = {"unchanged": 3.0, "half_batch": 10.0, "altered_rows": 10.0}
+CALIBRATE_DEADLINE_S = 3300.0
+FAULT_FACTOR = {"unchanged": 3.0, "half_batch": 10.0, "altered_rows": 10.0,
+                "no_exchange": 10.0}
 
 
 def derive(lines: list) -> dict:
@@ -135,10 +219,10 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="")
     p.add_argument("--derive", nargs="+", default=[])
     p.add_argument("--variants", nargs="+",
-                   default=["sound", "unchanged", "half_batch", "altered_rows"],
-                   help="program runs besides the control (sound first)")
+                   help="program runs besides the control (sound first; default: sound and "
+                        "every fault the cell can have)")
     p.add_argument("--detail", action="store_true",
-                   help="add each step's loss gap and each leaf's gaps (sound, control)")
+                   help="add each step's loss gap and each leaf's gaps (every variant)")
     args = p.parse_args(argv)
     if args.derive:
         lines = [json.loads(x) for f in args.derive for x in open(f) if x.strip()]
@@ -146,21 +230,34 @@ def main(argv=None) -> int:
         return 0
     if not args.workload or not args.seeds:
         p.error("--workload and --seeds, or --derive")
-    if not torch.cuda.is_available():
-        print("calibrate: no CUDA card", file=sys.stderr)
+    entry, _, config = registry.cell(args.workload)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < entry["chips"]:
+        print(f"calibrate: {args.workload} needs {entry['chips']} CUDA card(s), found {have}",
+              file=sys.stderr)
         return 2
-    _, _, config = registry.cell(args.workload)
+    variants = args.variants or variants_of(entry["chips"])
+    if entry["chips"] > 1:
+        from portbench import ranks
+
+        job = {"cell": args.workload, "seeds": args.seeds, "variants": variants,
+               "details": args.detail, "sizes": None, "out": args.out}
+        ranks.spawn(sharded_readings, entry["chips"], job, "cuda", deadline_s=CALIBRATE_DEADLINE_S)
+        return 0
     graph = gen.make_graph(config, "cuda")
     for seed in args.seeds:
-        line = json.dumps(readings(args.workload, seed, variants=tuple(args.variants),
-                                   details=args.detail, graph=graph))
-        print(line, flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(line + "\n")
+        _emit(readings(args.workload, seed, variants=tuple(variants), details=args.detail,
+                       graph=graph), args.out)
         gc.collect()
         torch.cuda.empty_cache()
     return 0
+
+
+def variants_of(chips: int) -> list:
+    """The sound program and every fault that a cell on `chips` cards can have."""
+    from portbench import program
+
+    return ["sound"] + [f for f in program.FAULTS if chips > 1 or f not in program.SHARDED_FAULTS]
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """mfu: the epoch's model FLOPs (the configuration's reference
-`model_flops`: GEMMs and aggregation, forward and backward, however the
-program computes them) over the mean traced epoch time times the card's
-float32 peak, in %. Layer: model (`models/models.py`, `models/layers.py`)."""
+`model_flops` over the whole graph: GEMMs and aggregation, forward and
+backward, however the program computes them) over the mean traced epoch
+time times the peak of the run's cards (the record's `chips` × one card's
+float32 peak), in %. Layer: model (`models/models.py`, `models/layers.py`)."""
 
 from portbench import registry
 from portbench.roofline import PEAK_FLOPS
@@ -15,4 +16,4 @@ def read(record):
     flops = registry.reference(record["config"]).model_flops(
         record["config"], record["traffic"], record["num_nodes"], record["live_edges"])
     dtype = "bfloat16" if record["traffic"].get("compute_dtype") == "bfloat16" else "float32"
-    return 100.0 * flops / (epoch_s * PEAK_FLOPS[dtype])
+    return 100.0 * flops / (epoch_s * record["chips"] * PEAK_FLOPS[dtype])

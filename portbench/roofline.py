@@ -3,7 +3,8 @@
 Copied from `maxk_tpu_torch/bench/micro.py` (`HBM_BYTES_PER_S`, `PEAK_FLOPS`,
 `bound`) and from the CSR bytes of `maxk_tpu_torch/bench/ablate_csr.csr_bytes`
 with K9's features and output of `chip_smoke.phase_csr_kernels`, so that a
-later change to the program cannot move the yardstick. The peaks are the
+later change to the program cannot move the yardstick; K10's and K11's bytes
+are the same read-once count over what each kernel takes and gives. The peaks are the
 H100 SXM's data-sheet rates at its 700 W limit (dense, no sparsity).
 """
 
@@ -30,3 +31,19 @@ def k9_bytes(num_nodes: int, live_edges: int, dim: int, itemsize: int = 4) -> in
     """K9 (`spmm_csr`, y = A @ x) read once: the CSR, x read and y written
     once."""
     return csr_bytes(num_nodes, live_edges) + 2 * num_nodes * dim * itemsize
+
+
+def k10_bytes(num_nodes: int, live_edges: int, dim: int, k: int, itemsize: int = 4) -> int:
+    """K10 (`spgemm_cbsr`, y = A @ densify(CBSR), with its merge pass) read
+    once: the CSR, each node's merged row (k values and k int16 selectors)
+    and y written once."""
+    return (csr_bytes(num_nodes, live_edges) + num_nodes * k * (itemsize + 2)
+            + num_nodes * dim * itemsize)
+
+
+def k11_bytes(num_nodes: int, live_edges: int, dim: int, k: int, itemsize: int = 4) -> int:
+    """K11 (`sspmm_cbsr`, dvals = (Aᵀ @ g) sampled at the selectors) read
+    once: Aᵀ's CSR, g (V × D) and the int32 selectors (V × k) read, dvals
+    (V × k) written once."""
+    return (csr_bytes(num_nodes, live_edges) + num_nodes * dim * itemsize
+            + num_nodes * k * (4 + itemsize))

@@ -15,6 +15,10 @@ the program's readings against it (`portbench/checks.py`). The last lines
 on standard error are the numbers compared beside their limits; the last
 line on standard output is the result.
 
+A cell whose `chips` in `BENCHMARK.json` is above 1 runs on that many
+cards, one process a card, through the program's row-partitioned path
+(`portbench/ranks.py`); this process spawns the ranks and prints the result.
+
 It exits 2, printing no result, without enough CUDA cards, and 3 if jax,
 jaxlib, flax or the JAX package is loaded once the window has closed.
 """
@@ -81,10 +85,16 @@ def _finite(x):
 
 
 def run(cell: str, seed: int, seconds: float, trace_on: bool, device: str = "cuda",
-        fault=None, sizes=None) -> dict:
-    """The result of one run. `sizes` overrides configuration sizes (the CPU
-    tests); `fault` plants one of `program.FAULTS`."""
-    _, traffic, config = registry.cell(cell)
+        fault=None, sizes=None, world=None) -> dict:
+    """The result of one run. `sizes` overrides configuration sizes and
+    `world` the cell's card count (the CPU tests); `fault` plants one of
+    `program.FAULTS`."""
+    entry, traffic, config = registry.cell(cell)
+    world = entry["chips"] if world is None else world
+    if world > 1:
+        from portbench import ranks
+
+        return ranks.run(cell, world, seed, seconds, trace_on, device, fault, sizes, _START)
     config = {**config, **(sizes or {})}
     ref = registry.reference(config)
     cuda = torch.device(device).type == "cuda"
@@ -146,7 +156,7 @@ def run(cell: str, seed: int, seconds: float, trace_on: bool, device: str = "cud
     if trace_on:
         rec = {"stamps": stamps, "trace": record, "config": config, "traffic": traffic,
                "num_nodes": inputs.num_nodes, "live_edges": inputs.num_edges,
-               "build_graph_s": build_s}
+               "build_graph_s": build_s, "chips": 1}
         for m in registry.metrics("per_layer", cell):
             value = registry.reader(m["name"]).read(rec)
             if value is not None:

@@ -29,7 +29,7 @@ def test_every_cell_resolves(cell):
     entry, traffic, config = registry.cell(cell)
     assert NAME.match(cell) and NAME.match(entry["traffic"]) and NAME.match(entry["config"])
     assert cell == f"{entry['config']}.{entry['traffic']}"
-    assert entry["chips"] == 1 and 1 <= len(entry["why"]) <= 200
+    assert entry["chips"] in (1, 4) and 1 <= len(entry["why"]) <= 200
     assert config["name"] == entry["config"]
     ref = registry.reference(config)
     for fn in ("parameters", "model_flops", "follow"):
@@ -47,8 +47,24 @@ def test_configs(config):
     assert config["file"].startswith("portbench/configs/")
     body = json.loads((registry.ROOT / config["file"]).read_text())
     assert body["source"] == config["source"] and len(config["source"]) <= 200
-    assert config["reduced"] == body["reduced"] == []
+    assert config["reduced"] == body["reduced"]
+    assert all(NAME.match(k) and k in body for k in config["reduced"])
     assert any(w["config"] == config["name"] for w in BENCH["workloads"])
+
+
+def test_four_card_cells_within_a_quarter():
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
+
+
+def test_papers100m_cut_keeps_the_shape():
+    body = registry.cell("sage-papers100m.maxk32")[2]
+    published = body["deployment"]["published"]
+    assert body["num_nodes"] == published["num_nodes"] // 8
+    assert body["num_edges"] * 8 == published["num_edges"] and body["num_edges"] % 2 == 0
+    assert body["num_edges"] / body["num_nodes"] == pytest.approx(
+        published["num_edges"] / published["num_nodes"], rel=1e-6)
+    assert (body["hidden_dim"], body["feat_dim"], body["num_classes"]) == (256, 128, 172)
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],

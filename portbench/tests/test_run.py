@@ -30,7 +30,8 @@ def test_traced_run_reads_per_layer_metrics():
     assert res["correct"]
     assert {"train_step_ms", "eval_ms", "mfu", "build_graph_s"} <= set(res["metrics"])
     # no device on the CPU: the device's readers find nothing and stay out
-    assert "k9_roofline" not in res["metrics"] and "device_idle_share" not in res["metrics"]
+    assert "cbsr_pair_roofline" not in res["metrics"]
+    assert "device_idle_share" not in res["metrics"]
     assert res["attempted"] == registry.cell("sage-products.maxk32")[1]["trace_epochs"]
     assert "breakdown" in res and res["device"]["window_s"] > 0
 

@@ -22,6 +22,7 @@ def test_union_gaps_and_labels():
         ev("Memcpy DtoH (Device -> Pageable)", 70, 80, DeviceType.CUDA),
         ev("ampere_sgemm", 95, 120, DeviceType.CUDA),  # clipped at the window's end
         ev("portbench.train_step", 0, 60, DeviceType.CUDA),  # a span's mark, not an op
+        ev("nccl:_all_gather_base", 70, 80, DeviceType.CUDA),  # a collective's mark
         ev("ampere_sgemm", -50, -10, DeviceType.CUDA),  # before the window: left out
         ev("void (anonymous namespace)::combine_kernel<float>(float const*)", 38, 40,
            DeviceType.CUDA),
@@ -33,7 +34,7 @@ def test_union_gaps_and_labels():
     assert rec["ops"]["ampere_sgemm"]["count"] == 1
     assert "Memcpy DtoH (Device -> Pageable)" in rec["ops"]
     assert rec["ops"]["combine_kernel<float>"]["count"] == 1
-    assert not any(n.startswith("portbench") for n in rec["ops"])
+    assert not any(n.startswith(("portbench", "nccl:")) for n in rec["ops"])
     gaps = dict((round(s * 1e6), n) for n, s in rec["idle_gaps"])
     # idle 0-5 and 40-70 (starting in the train step), 80-95 (in the evaluation)
     assert gaps == {30: "train_step", 5: "train_step", 15: "eval_step"}
@@ -41,6 +42,35 @@ def test_union_gaps_and_labels():
     b = trace.breakdown(rec)
     assert b["device_ops"][0][0] == "spmm_csr_kernel<float, true>"
     assert len(b["idle_gaps"]) <= trace.TOP
+
+
+def test_intervals_are_kept_inside_the_window():
+    events = [ev("portbench.epoch", 100, 200),
+              ev("ncclDevKernel_AllGather_RING_LL(x)", 90, 130, DeviceType.CUDA),
+              ev("ampere_sgemm", 150, 160, DeviceType.CUDA)]
+    rec = trace.reduce(events)
+    assert rec["intervals"] == [("ncclDevKernel_AllGather_RING_LL", 0.0, 30e-6),
+                                ("ampere_sgemm", 50e-6, 60e-6)]
+
+
+def test_overlap_of_interval_lists():
+    a = [[0, 10], [20, 30]]
+    b = [[5, 25], [28, 40]]
+    assert trace.overlap(a, b) == 5 + 5 + 2
+    assert trace.overlap(a, []) == 0 and trace.length(a) == 20
+
+
+def test_comm_exposed_ms_leaves_out_what_other_kernels_overlap():
+    from portbench import registry
+
+    read = registry.reader("comm_exposed_ms").read
+    # two epochs; NCCL 0-4 ms (a GEMM over 1-2) and 10-13 ms (alone)
+    intervals = [("ncclDevKernel_AllGather_RING_LL", 0.0, 0.004), ("sgemm", 0.001, 0.002),
+                 ("ncclDevKernel_ReduceScatter_RING_LL", 0.010, 0.013), ("k", 0.02, 0.03)]
+    record = {"trace": {"intervals": intervals}, "stamps": [(0, 0, 0, 1), (1, 1, 1, 2)]}
+    assert read(record) == pytest.approx((3 + 3) / 2)
+    record["trace"]["intervals"] = intervals[1:2] + intervals[3:]
+    assert read(record) is None
 
 
 def test_reduce_needs_an_epoch():

@@ -5,7 +5,8 @@ the device operations (kernels, copies, sets) by name with their count and
 seconds, the device's busy time as the union of their intervals (a corrected
 copy of `chip_smoke.device_busy`, which summed durations and kept no gaps),
 the traced window (the first epoch span's start to the last one's end; the
-operations outside it are left out), and
+operations outside it are left out), each operation's interval in it (so
+that a reader can take what one kind of operation did not overlap), and
 the idle gaps, each labelled by the harness's span (`portbench.*`) in which
 the device went idle.
 """
@@ -16,6 +17,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 SPANS = ("portbench.train_step", "portbench.eval_step", "portbench.loss_read")
+ANNOTATIONS = ("portbench.", "nccl:")
 TOP = 10
 
 
@@ -40,13 +42,34 @@ def merge(intervals) -> list:
     return out
 
 
+def length(intervals) -> float:
+    return sum(e - s for s, e in intervals)
+
+
+def overlap(a, b) -> float:
+    """The length that two lists of sorted disjoint intervals share."""
+    i = j = 0
+    out = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            out += hi - lo
+        if a[i][1] <= b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
 def reduce(events) -> dict:
     """The record of a traced window from the profiler's `events()`."""
     device, spans, epochs = [], [], []
     for e in events:
         t = (e.time_range.start, e.time_range.end)
         if e.device_type == DeviceType.CUDA:
-            if not e.name.startswith("portbench."):  # the spans' own device-side marks
+            # device-side marks of ranges, not operations: the harness's spans, and
+            # torch.distributed's `nccl:<collective>` around each NCCL kernel
+            if not e.name.startswith(ANNOTATIONS):
                 device.append((e.name, *t))
         elif e.name == "portbench.epoch":
             epochs.append(t)
@@ -56,11 +79,12 @@ def reduce(events) -> dict:
         raise ValueError("the trace holds no portbench.epoch span")
     lo, hi = min(s for s, _ in epochs), max(e for _, e in epochs)
     device = [d for d in device if d[2] > lo and d[1] < hi]
-    ops = {}
+    ops, intervals = {}, []
     for name, start, end in device:
         n = short_name(name)
         count, us = ops.get(n, (0, 0.0))
         ops[n] = (count + 1, us + (end - start))
+        intervals.append((n, (max(start, lo) - lo) / 1e6, (min(end, hi) - lo) / 1e6))
     busy = merge((max(s, lo), min(e, hi)) for _, s, e in device)
     gaps, cursor = [], lo
     for start, end in busy + [[hi, hi]]:
@@ -79,6 +103,7 @@ def reduce(events) -> dict:
         "window_s": (hi - lo) / 1e6,
         "busy_s": sum(e - s for s, e in busy) / 1e6,
         "ops": {n: {"count": c, "seconds": us / 1e6} for n, (c, us) in ops.items()},
+        "intervals": intervals,
         "idle_gaps": idle,
     }
 
