@@ -50,16 +50,16 @@ def _load(path: Path):
     if not path.is_file():
         raise FileNotFoundError(f"{path} does not exist")
     name = "portbench._by_path." + "".join(c if c.isalnum() else "_" for c in
-                                           str(path.relative_to(HERE)))
+                                           str(path.relative_to(path.parents[1])))
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-def reference(config: dict):
+def reference(config: dict, root: Path = ROOT):
     """The plain reference module that the configuration names."""
-    return _load(HERE / "reference" / f"{config['reference']}.py")
+    return _load(root / "portbench" / "reference" / f"{config['reference']}.py")
 
 
 def reader(metric: str):

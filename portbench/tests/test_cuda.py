@@ -16,7 +16,7 @@ SEEDS = (101, 2**31 + 102, 103)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["sage-reddit.maxk32", "sage-reddit.relu"])
+@pytest.mark.parametrize("cell", ["sage-reddit.maxk32", "sage-reddit.relu", "sage-reddit.maxk8"])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_control_and_faults_fail_the_check(cuda, cell, seed):
     out = calibrate.readings(cell, seed, cuda, SMALL,

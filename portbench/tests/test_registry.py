@@ -89,20 +89,74 @@ def test_setup_bound():
     assert setup and setup[0]["bound"] == 0.25
 
 
-def test_new_cell_is_found_from_files_alone(tmp_path):
+# A name no planned cell or configuration takes: the leading `_` is outside
+# every `<config>.<traffic>` name the benchmark plans.
+PROBE = "_probe"
+
+
+def _copy(tmp_path):
+    """The benchmark's files in `tmp_path`, and its BENCHMARK.json as a dict."""
     shutil.copytree(registry.HERE, tmp_path / "portbench")
-    bench = json.loads((registry.ROOT / "BENCHMARK.json").read_text())
-    bench["workloads"].append({"name": "sage-reddit.maxk8", "config": "sage-reddit",
-                               "traffic": "maxk8", "chips": 1, "why": "k = 8"})
+    return json.loads((registry.ROOT / "BENCHMARK.json").read_text())
+
+
+def _add_cell(tmp_path, bench, config, source_cell):
+    """A cell `<config>._probe` whose workload file copies `source_cell`'s."""
+    cell = f"{config}.{PROBE}"
+    assert cell not in {w["name"] for w in BENCH["workloads"]}
+    bench["workloads"].append({"name": cell, "config": config, "traffic": PROBE,
+                               "chips": 1, "why": "probe"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    traffic = json.loads((registry.HERE / "workloads" / "sage-reddit.maxk32.json").read_text())
-    traffic["maxk"] = 8
-    (tmp_path / "portbench" / "workloads" / "sage-reddit.maxk8.json").write_text(
-        json.dumps(traffic))
-    entry, got, config = registry.cell("sage-reddit.maxk8", root=tmp_path)
-    assert got["maxk"] == 8 and config["name"] == "sage-reddit"
-    names = {m["name"] for m in registry.metrics("per_layer", "sage-reddit.maxk8", tmp_path)}
-    assert {"train_step_ms", "mfu", "device_idle_share"} <= names
-    assert "k9_roofline" not in names  # listed for its own cells only
+    traffic = json.loads((registry.HERE / "workloads" / f"{source_cell}.json").read_text())
+    traffic["config"] = config
+    (tmp_path / "portbench" / "workloads" / f"{cell}.json").write_text(json.dumps(traffic))
+    return cell
+
+
+def _unlisted(kind):
+    return {m["name"] for m in BENCH[kind] if "workloads" not in m}
+
+
+def _repository_unchanged(cell):
+    assert registry.benchmark() == BENCH
     with pytest.raises(KeyError):
-        registry.cell("sage-reddit.maxk8")  # the repository's benchmark is unchanged
+        registry.cell(cell)
+
+
+def test_new_cell_is_found_from_files_alone(tmp_path):
+    bench = _copy(tmp_path)
+    cell = _add_cell(tmp_path, bench, "sage-reddit", "sage-reddit.maxk8")
+    entry, got, config = registry.cell(cell, root=tmp_path)
+    assert entry["traffic"] == PROBE and got["maxk"] == 8 and config["name"] == "sage-reddit"
+    # a cell that no metric's `workloads` lists reports the unlisted metrics
+    for kind in ("end_to_end", "per_layer"):
+        names = {m["name"] for m in registry.metrics(kind, cell, tmp_path)}
+        assert names == _unlisted(kind), kind
+    _repository_unchanged(cell)
+
+
+def test_new_configuration_is_found_from_files_alone(tmp_path):
+    bench = _copy(tmp_path)
+    body = json.loads((registry.HERE / "configs" / "sage-reddit.json").read_text())
+    body.update(name=PROBE, reference=PROBE)
+    (tmp_path / "portbench" / "configs" / f"{PROBE}.json").write_text(json.dumps(body))
+    shutil.copy(registry.HERE / "reference" / "sage.py",
+                tmp_path / "portbench" / "reference" / f"{PROBE}.py")
+    assert PROBE not in {c["name"] for c in BENCH["configs"]}
+    bench["configs"].append({"name": PROBE, "source": body["source"],
+                             "file": f"portbench/configs/{PROBE}.json", "reduced": [],
+                             "why": "probe"})
+    cell = _add_cell(tmp_path, bench, PROBE, "sage-reddit.maxk32")
+    entry, traffic, config = registry.cell(cell, root=tmp_path)
+    assert entry["config"] == config["name"] == traffic["config"] == PROBE
+    ref = registry.reference(config, root=tmp_path)
+    assert ref.__file__ == str(tmp_path / "portbench" / "reference" / f"{PROBE}.py")
+    for fn in ("parameters", "model_flops", "follow"):
+        assert callable(getattr(ref, fn))
+    assert ref.parameters(config) == registry.reference(body | {"reference": "sage"}).parameters(
+        config)
+    names = {m["name"] for m in registry.metrics("per_layer", cell, tmp_path)}
+    assert names == _unlisted("per_layer")
+    _repository_unchanged(cell)
+    with pytest.raises(FileNotFoundError):
+        registry.reference(config)  # the repository holds no such reference

@@ -13,7 +13,7 @@ from portbench.tests.conftest import TINY
 SEED = 2**31 + 4242
 
 
-@pytest.mark.parametrize("cell", ["sage-reddit.maxk32", "sage-reddit.relu"])
+@pytest.mark.parametrize("cell", ["sage-reddit.maxk32", "sage-reddit.relu", "sage-reddit.maxk8"])
 def test_sound_run_is_correct(cell):
     res = run.run(cell, SEED, 1.5, False, device="cpu", sizes=TINY)
     assert res["correct"], res["checks"]
@@ -36,10 +36,16 @@ def test_traced_run_reads_per_layer_metrics():
     assert "breakdown" in res and res["device"]["window_s"] > 0
 
 
-@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered_rows"])
-def test_each_fault_fails_the_check(fault):
-    res = run.run("sage-reddit.maxk32", SEED, 0.0, True, device="cpu", fault=fault,
-                  sizes=TINY)
+FAULTS = ["unchanged", "half_batch", "altered_rows"]
+
+
+# at k = 8 too: `altered_rows` has to reach K10 and K11 at that width
+@pytest.mark.parametrize("cell, fault",
+                         [pytest.param("sage-reddit.maxk32", f, id=f) for f in FAULTS]
+                         + [pytest.param("sage-reddit.maxk8", f, id=f"maxk8-{f}")
+                            for f in FAULTS])
+def test_each_fault_fails_the_check(cell, fault):
+    res = run.run(cell, SEED, 0.0, True, device="cpu", fault=fault, sizes=TINY)
     assert not res["correct"]
     assert any(v["value"] is None or v["value"] > v["limit"] for v in res["checks"].values())
 
