@@ -918,7 +918,7 @@ def phase_sharded_small(names) -> dict:
     small scale the same way, whose sharded eval ranks the all-gathered
     rows for ROC-AUC (`gathered_rocauc`): it must equal the single-device
     `rocauc` on the same logits, bit for bit. Returns the kernel launches of the proteins case, counted from
-    0 (the sharded segsum path: K4, K10, K9, K3)."""
+    0 (the sharded segsum path: K4, K10, K3, K11)."""
     import torch
 
     from maxk_tpu_torch.data.datasets import load_dataset
@@ -966,7 +966,7 @@ def phase_sharded_small(names) -> dict:
                         f"single-device {extra['single_rocauc']} on the same logits")
                 require(all(0.0 < x < 1.0 for x in extra["sharded_rocauc"]),
                         f"sharded proteins: ROC-AUC {extra['sharded_rocauc']} outside (0, 1)")
-                for name in ("topk_cbsr", "spgemm_cbsr", "spmm_csr", "cbsr_sample"):
+                for name in ("topk_cbsr", "spgemm_cbsr", "sspmm_cbsr", "cbsr_sample"):
                     require(launches[name] > 0,
                             f"{name} was not launched on the sharded proteins case")
             emit("sharded_small", model=model, dataset=d.name, world_size=1,
@@ -1709,9 +1709,9 @@ def phase_sharded_train(data, names) -> dict:
     require(len(losses) == SHARDED_EPOCHS and all(math.isfinite(x) for x in losses),
             f"sharded training: non-finite or missing losses {losses}")
     require(losses[-1] < losses[0], f"sharded training: loss did not fall {losses}")
-    # AUTO is segsum at reddit x1.0 on the card: K4, K10 forward, K9 and K3
-    # backward
-    for name in ("topk_cbsr", "spgemm_cbsr", "spmm_csr", "cbsr_sample"):
+    # AUTO is segsum at reddit x1.0 on the card: K4, K3's resample and K10
+    # forward, K11 over the transposed block backward
+    for name in ("topk_cbsr", "spgemm_cbsr", "sspmm_cbsr", "cbsr_sample"):
         require(launches[name] > 0, f"{name} was not launched on the sharded path")
     require(launches["topk_cbsr"] >= LAYERS * SHARDED_EPOCHS,
             f"topk_cbsr launched {launches['topk_cbsr']} < {LAYERS * SHARDED_EPOCHS} times")

@@ -19,7 +19,8 @@ all_gathers x and aggregates the local block, its backward reduce-
 scatters the (Vp, D) partials of the transposed block; maxk_spgemm
 all_gathers the compressed CBSR (values cast to `compute_dtype` first),
 densifies and aggregates the local block, and its backward samples the
-reduce-scattered cotangent at the local selectors.
+reduce-scattered cotangent at the local selectors (under segsum it samples
+first, below).
 
 The SpMM is the CSR kernel `spmm_csr` (K9, `ops/spmm_csr.py`; the plain
 `spmm_segsum` on the CPU) under SEGSUM, and under AUTO on a graph without
@@ -27,7 +28,12 @@ a strip schedule; there maxk_spgemm runs the paper's pair on one device,
 `spgemm_cbsr` (K10, densify and SpMM in one kernel) forward and
 `sspmm_cbsr` (K11, the Aᵀ SpMM sampled at the selectors) backward, and
 its sharded forward runs K10 over the rank's block after the CBSR
-all_gather (its backward keeps the Aᵀ block, the reduce-scatter and K3).
+all_gather and keeps the gathered (Vp, k) selectors; its sharded backward
+runs K11 over the transposed block at them and reduce-scatters the (Vp, k)
+sampled partials, not (Vp, D) ones: row v is sampled at sel[v] on every
+rank, so sampling commutes with the sum over ranks. This departs from the
+reference's order (reduce-scatter, then sample) and its collective bytes
+(`parallel/audit.py`).
 Under TILES_XLA and TILES_SCAN it runs over the graph's
 edge-tile tables (`build_graph(build_tiles=True)`, `build_sharded_graph(
 build_tiles=True)`), which must exist. A rank's block always takes
@@ -112,6 +118,13 @@ def is_segsum(graph, mode: str) -> bool:
             and resolve_mode(mode, graph.tiles is not None) == KernelMode.SEGSUM)
 
 
+def _sharded_segsum(graph: ShardedGraph, mode: str) -> bool:
+    """Whether a rank's blocks aggregate by the CSR segment sum (no strip
+    schedule), where maxk_spgemm runs K10 forward and K11 backward."""
+    return graph.hybrid is None and resolve_mode(mode, graph.fwd_tiles is not None) == \
+        KernelMode.SEGSUM
+
+
 def _spmm_impl(graph, x: torch.Tensor, mode: str, transpose: bool) -> torch.Tensor:
     if isinstance(graph, ShardedGraph):
         resolve_mode(mode)  # pallas raises before any collective
@@ -155,7 +168,6 @@ def spmm(graph, x: torch.Tensor, mode: str = "auto") -> torch.Tensor:
 class _MaxKSpGEMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, sel, graph, dim, mode, compute_dtype):
-        ctx.save_for_backward(sel)
         ctx.graph, ctx.mode, ctx.compute_dtype = graph, mode, compute_dtype
         ctx.vals_dtype = vals.dtype
         if compute_dtype is not None:
@@ -168,19 +180,25 @@ class _MaxKSpGEMM(torch.autograd.Function):
         if isinstance(graph, ShardedGraph):
             # gather the compressed features, not (Vp, dim) dense rows;
             # x is then whole, so the local block needs no second gather
+            kept = sel  # the backward's selectors: this rank's rows
             vals, sel = all_gather_rows(vals, graph.mesh), all_gather_rows(sel, graph.mesh)
             h = graph.hybrid
             if h is not None:  # the pre-scale folded into the values, as below
                 _gathered("hybrid", graph.fwd, dim * item)
                 x = densify(vals * h.pre[:, None].to(vals.dtype), sel, dim)
                 y = spmm_hybrid_sharded(h, x, graph.mesh, pre_applied=True)
-            elif resolve_mode(mode, graph.fwd_tiles is not None) == KernelMode.SEGSUM:
+            elif _sharded_segsum(graph, mode):
                 _gathered("k10", graph.fwd, k * (item + 2))
                 y = spgemm_cbsr(graph.fwd, vals, sel, dim)
+                # K11 samples all Vp rows of the transposed block; this
+                # rank's are rows [r·Vs, (r+1)·Vs) of these
+                kept = sel
             else:
                 y = _local_spmm(graph.fwd, graph.fwd_tiles, densify(vals, sel, dim), mode,
                                 sharded=True)
+            ctx.save_for_backward(kept)
             return y.to(ctx.vals_dtype)
+        ctx.save_for_backward(sel)
         hybrid = _hybrid_mode(graph, mode)
         if hybrid is not None:
             # the pre-scale folded into the (V, k) values: the same product
@@ -203,7 +221,12 @@ class _MaxKSpGEMM(torch.autograd.Function):
         if ctx.compute_dtype is not None:
             g = g.to(ctx.compute_dtype)
         graph = ctx.graph
-        if not isinstance(graph, ShardedGraph) and is_segsum(graph, ctx.mode):
+        if isinstance(graph, ShardedGraph) and _sharded_segsum(graph, ctx.mode):
+            # sampled before the sum over ranks: (Vp, k) partials of the
+            # transposed block reduce-scattered, not (Vp, D)
+            _gathered("k11", graph.bwd, sel.shape[1] * g.element_size())
+            dvals = reduce_scatter_rows(sspmm_cbsr(graph.bwd, g.contiguous(), sel), graph.mesh)
+        elif not isinstance(graph, ShardedGraph) and is_segsum(graph, ctx.mode):
             _gathered("k11", graph.csc, sel.shape[1] * g.element_size())
             dvals = sspmm_cbsr(graph.csc, g.contiguous(), sel)
         else:

@@ -13,7 +13,9 @@ reference's:
     block (local rows, global columns);
   - backward: every rank runs its transposed block (global rows, local
     columns) over its local cotangent and a reduce_scatter sums the
-    (Vp, D) partials and hands each rank its rows.
+    (Vp, D) partials and hands each rank its rows; under segsum the MaxK
+    backward samples them at the gathered selectors first (K11), and
+    reduce-scatters (Vp, k).
 
   - with a strip schedule (`hybrid`), both directions gather the features
     and run `ops/spmm_hybrid.spmm_hybrid_sharded` over the rank's rows of

@@ -15,8 +15,11 @@ import torch
 from maxk_tpu_torch.data.datasets import GraphData
 from maxk_tpu_torch.data.synthetic import planted_partition_data, rmat_graph
 from maxk_tpu_torch.models.layers import aggregate
+from maxk_tpu_torch.ops.cbsr_cuda import sample
 from maxk_tpu_torch.ops.dispatch import TILE_MODES
 from maxk_tpu_torch.ops.spgemm import maxk_spgemm, spmm
+from maxk_tpu_torch.ops.spmm_csr import spmm_csr
+from maxk_tpu_torch.parallel.collectives import reduce_scatter_rows
 from maxk_tpu_torch.parallel.shard import build_sharded_graph, shard_rows
 from maxk_tpu_torch.parallel.train import (
     make_sharded_eval_step,
@@ -39,7 +42,9 @@ def ops_case(mesh, graph_args: tuple, norm: str, x, ct, vals, sel, xdrop,
     aggregation of post-dropout features, on this rank's rows of
     `rmat_graph(*graph_args)`, under kernel mode `mode` (the tile modes
     build the rank's tile tables); with the receive bytes of each op's
-    forward + backward."""
+    forward + backward, maxk_spgemm's reduce_scatter calls and payload
+    bytes, and the gradient the other way round: K9 over the transposed
+    block, the (Vp, D) partials reduce-scattered, then sampled."""
     graph = build_sharded_graph(rmat_graph(*graph_args), mesh, norm=norm,
                                 build_tiles=mode in TILE_MODES)
     vs, d = graph.shard_nodes, x.shape[1]
@@ -58,7 +63,11 @@ def ops_case(mesh, graph_args: tuple, norm: str, x, ct, vals, sel, xdrop,
     y = maxk_spgemm(graph, CBSR(vt, st), dim=d, mode=mode)
     y.backward(_local(mesh, ct, vs))
     out.update(maxk_y=y.detach().numpy(), maxk_dvals=vt.grad.numpy(),
-               maxk_recv=mesh.bytes.total_recv())
+               maxk_recv=mesh.bytes.total_recv(),
+               maxk_scatter=(mesh.bytes.calls["reduce_scatter"],
+                             mesh.bytes.payload["reduce_scatter"]))
+    partial = spmm_csr(graph.bwd, _local(mesh, ct, vs))
+    out["maxk_dvals_scatter_first"] = sample(reduce_scatter_rows(partial, mesh), st).numpy()
 
     with torch.no_grad():
         agg = aggregate(graph, _local(mesh, xdrop, vs), mode, None,

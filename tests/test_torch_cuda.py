@@ -1068,6 +1068,43 @@ def test_sspmm_cbsr_many_long_units(cuda, k, dtype, sliced, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 32, 64])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_sspmm_cbsr_on_a_transposed_block_equals_sampled_k9(cuda, k, dtype, sliced, monkeypatch):
+    """K11 over a rank's transposed block (Vp rows, columns the rank's Vs
+    local rows of g; `parallel.shard.shard_blocks`), as the sharded MaxK
+    backward runs it, against K3 sampling K9's (Vp, D) product over the same
+    block, bit for bit: the same products summed in the same order. The
+    block has a row of several segments, rows without edges and the padded
+    rows past V; every rank's block at n = 4."""
+    from maxk_tpu_torch.ops import spmm_csr as sc
+    from maxk_tpu_torch.parallel.shard import shard_blocks
+    from maxk_tpu_torch.sparse.csr import SEG_EDGES, with_segments
+
+    if sliced:
+        monkeypatch.setattr(sc, "K11_SLICE_MIN_DEGREE", 0)
+        monkeypatch.setattr(sc, "K11_SLICE_MAX_K", 1 << 30)
+    n, d = 4, 256
+    csr = _csr_graph(v=3001, e=30_000, seed=7).csr
+    vs, vp = -(-csr.num_nodes // n), -(-csr.num_nodes // n) * n
+    assert vp > csr.num_nodes
+    gen = torch.Generator().manual_seed(k)
+    sel = torch.sort(torch.rand((vp, d), generator=gen).argsort(1)[:, :k], 1).values.int()
+    for r, (_, bwd) in enumerate(shard_blocks(csr, n, "none")):
+        deg = torch.diff(bwd.indptr.long())
+        assert bwd.num_nodes == vp and int(deg.max()) > SEG_EDGES
+        assert bool((deg[: csr.num_nodes] == 0).any()) and not deg[csr.num_nodes:].any()
+        bc = with_segments(bwd.to(cuda))
+        g = torch.randn((vs, d), generator=gen).to(dtype).to(cuda)
+        out = sc.sspmm_cbsr_cuda(bc, g, sel.to(cuda))
+        ref = cbsr_cuda.sample_cuda(sc.spmm_csr_cuda(bc, g), sel.to(cuda))
+        torch.cuda.synchronize()
+        assert out.shape == (vp, k) and out.dtype == dtype
+        assert torch.equal(_bits(out), _bits(ref)), r
+
+
+@pytest.mark.cuda
 def test_csr_kernels_launch_on_the_current_stream(cuda):
     """K9-K11 under `torch.cuda.stream(s)`, their input written on s after a
     sleep: the same bits as a launch on the default stream."""

@@ -7,7 +7,10 @@ CPU in the role of the mesh's devices:
 - sharded spmm and maxk_spgemm, forward and gradient, and the compact
   aggregation of post-dropout features, at n = 2 and 4, against JAX's
   sharded ops and the port's single-device ops; the receive bytes the
-  collectives count equal `audit.model_recv_bytes_fwd_bwd`;
+  collectives count equal the port's `audit.model_recv_bytes_fwd_bwd`,
+  whose `maxk` arm reduce-scatters (Vp, k) sampled partials where the
+  reference's reduce-scatters (Vp, D), once a call, and whose gradient
+  equals the reference's order (reduce-scatter, then sample) bit for bit;
 - 3 steps of sharded MaxK-SAGE at n = 2 from imported flax parameters
   against `make_sharded_train_step`; parameters equal on every rank; GCN
   and GIN losses fall;
@@ -36,7 +39,6 @@ from maxk_tpu.models.layers import _AggMixin
 from maxk_tpu.ops import spgemm as jsp
 from maxk_tpu.parallel import shard as jshard
 from maxk_tpu.parallel import train as jtrain
-from maxk_tpu.parallel.audit import model_recv_bytes_fwd_bwd
 from maxk_tpu.parallel.mesh import GRAPH_AXIS, make_mesh
 from maxk_tpu.sparse.cbsr import CBSR as JCBSR
 from maxk_tpu.train.config import TrainConfig as JaxTrainConfig
@@ -45,6 +47,7 @@ from maxk_tpu_torch.models.convert import import_flax_params
 from maxk_tpu_torch.ops import spgemm as tsp
 from maxk_tpu_torch.parallel import shard as tshard
 from maxk_tpu_torch.parallel import testing
+from maxk_tpu_torch.parallel.audit import model_recv_bytes_fwd_bwd
 from maxk_tpu_torch.parallel.mesh import run_ranks
 from maxk_tpu_torch.sparse.cbsr import CBSR
 from maxk_tpu_torch.sparse.graph import build_graph
@@ -217,6 +220,7 @@ def ops(request, tmp_path_factory):
         results = ranks.result()
     s["got"] = {k: np.concatenate([r[k] for r in results])[:v] for k in OPS}
     s["recv"] = {arm: [r[f"{arm}_recv"] for r in results] for arm in ("maxk", "relu")}
+    s["ranks"] = results
     return s
 
 
@@ -238,6 +242,25 @@ def test_collective_bytes_match_audit_model(ops):
     for arm, kw in (("maxk", dict(k=K)), ("relu", {})):
         for rank_bytes in ops["recv"][arm]:
             assert rank_bytes == pytest.approx(model_recv_bytes_fwd_bwd(arm, n, vp, D, **kw), rel=1e-12)
+
+
+def test_sharded_maxk_backward_reduce_scatters_sampled_rows_once(ops):
+    """maxk_spgemm's forward + backward reduce-scatter once, the (Vp, k) f32
+    partials K11 sampled over the transposed block: Vp·k·4 bytes handed to
+    the collective, not Vp·D·4."""
+    vp = -(-GRAPH[0] // ops["n"]) * ops["n"]
+    for r in ops["ranks"]:
+        assert tuple(r["maxk_scatter"]) == (1, vp * K * 4)
+
+
+def test_sharded_maxk_dvals_equal_scatter_then_sample(ops):
+    """Sampling before the reduce-scatter gives the gradient of the
+    reference's order, K9 over the transposed block, the (Vp, D) partials
+    reduce-scattered, then sampled at the local selectors, bit for bit: the
+    same products summed in the same order, row v sampled at sel[v] on
+    every rank."""
+    for r in ops["ranks"]:
+        np.testing.assert_array_equal(r["maxk_dvals"], r["maxk_dvals_scatter_first"])
 
 
 # ---------------------------------------------------------------------------

@@ -208,7 +208,8 @@ def test_segsum_routes_through_the_wrappers(graphs, monkeypatch, mode):
 
 def test_sharded_segsum_forward_routes_through_k10(graphs, monkeypatch):
     """A rank's block at world size 1 (no collective runs): the forward is
-    K10 over the block, the backward the Aᵀ block's SpMM and the sample."""
+    K10 over the block, the backward K11 over the Aᵀ block at the gathered
+    selectors (sampled before the reduce-scatter); both equal one device's."""
     _, tg = graphs
     rows, cols, vals = _coo()
     mesh = types.SimpleNamespace(world_size=1, rank=0, device=torch.device("cpu"))
@@ -222,9 +223,12 @@ def test_sharded_segsum_forward_routes_through_k10(graphs, monkeypatch):
     tv = torch.from_numpy(v).requires_grad_(True)
     y = tsp.maxk_spgemm(sg, CBSR(tv, torch.from_numpy(s)), dim=D, mode="segsum")
     y.sum().backward()
-    assert calls == {"spgemm_cbsr_plain": 1, "spmm_csr_plain": 1}
-    ref = tsp.maxk_spgemm(tg, CBSR(tv.detach(), torch.from_numpy(s)), dim=D, mode="segsum")
-    torch.testing.assert_close(y.detach(), ref, rtol=0, atol=0)
+    assert calls == {"spgemm_cbsr_plain": 1, "sspmm_cbsr_plain": 1}
+    rv = tv.detach().clone().requires_grad_(True)
+    ref = tsp.maxk_spgemm(tg, CBSR(rv, torch.from_numpy(s)), dim=D, mode="segsum")
+    ref.sum().backward()
+    torch.testing.assert_close(y.detach(), ref.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(tv.grad, rv.grad, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("seg_edges", [1, 3, 64, SEG_EDGES])
